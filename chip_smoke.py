@@ -1,0 +1,574 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+and then, failing on the first phase that goes wrong:
+
+1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA
+   versions and the kernels' build time;
+2. holds every kernel against its plain PyTorch version on the card, at
+   the main path's shapes and at the sweep shapes of tests/test_kernels.py,
+   in fp32 and bf16;
+3. checks the full-width TinyLlama-1.1B model in fp32, teacher-forced,
+   on the card (kernels) against the CPU (plain versions);
+4. serves full-width TinyLlama-1.1B in bf16 through the port's MESC
+   server (the batch drive of ``repro_torch.launch.serve``), checking the
+   step order against the CPU port, that HI requests run at the step
+   after they arrive, and that the attention kernels launched once per
+   layer per decode step / prefill;
+5. runs the preemptible GEMM (``repro_torch.launch.preemptible_gemm``);
+6. times each kernel at its main-path shapes against its plain version,
+   one PyTorch library call and its bound on the card.
+
+The line before the last is the card's name and power limit; the last is
+``{"ok": true, "device": {...}}``.  Everything printed is also written to
+``results/chip_smoke.json``.  It exits non-zero without a result when
+CUDA is absent or the port's sources are not beside it.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12            # outside the tensor cores
+PEAK_BYTES = 3.35e12
+
+RECORD: dict = {}
+
+
+def log(msg: str = "") -> None:
+    print(msg, flush=True)
+
+
+def smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check_close(what, got, want, atol, rtol=0.0):
+    err = max_err(got, want)
+    bound = atol + rtol * float(want.float().abs().max())
+    ok = bool(torch.isfinite(got.float()).all()) and err <= bound
+    log(f"  {what}: max|err| {err:.3e} (tol {bound:.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: max|err| {err} > {bound}")
+    return err
+
+
+def cuda_time_ms(fn, reps: int = 30, per_graph: int = 10) -> float:
+    """Device time of one call: ``per_graph`` calls captured in a CUDA
+    graph, the graph replayed ``reps`` times between CUDA events, the
+    median replay over ``per_graph``.  Replaying a graph leaves out the
+    host's launch overhead, which a host-timed call would include."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):                       # warm-up outside capture
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / per_graph)
+    return statistics.median(times)
+
+
+def host_call_ms(fn, reps: int = 30) -> float:
+    """Wall time of one call on the host clock, synchronised: what a
+    caller of the wrapper waits, launch overhead included."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# 2. kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# bf16 tolerance: both sides round the same bf16 inputs, accumulate in fp32
+# and round p and the output to bf16; a last-bit difference in an fp32 sum
+# can flip a bf16 rounding, one bf16 ulp is 2^-8 relative (0.0078 at 1.0),
+# so outputs of size ~1-3 are held to 2e-2.
+ATTN_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+
+
+def randn(shape, gen, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+
+
+def phase_kernels(dev):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_tpu
+    from repro_torch.kernels.flash_attention import flash_attention_tpu
+    from repro_torch.kernels.systolic_gemm import gemm_partial, systolic_gemm
+    gen = torch.Generator(device=dev).manual_seed(7)
+    log("phase 2: kernels against their plain versions")
+
+    # preempt/resume chain, tests/test_kernels.py tolerances
+    M = K = N = 512
+    a, b = randn((M, K), gen), randn((K, N), gen)
+    full = ref.gemm_ref(a, b)
+    for split in (1, 2, 3):
+        acc = torch.zeros((M, N), device=dev)
+        acc = gemm_partial(a, b, acc, 0, split, bk=128)
+        saved = acc.cpu()
+        acc = gemm_partial(a, b, saved.to(dev), split, 4, bk=128)
+        check_close(f"gemm_partial chain split {split}/4 fp32", acc, full,
+                    1e-2, 1e-4)
+    for (M, K, N, bm, bn, bk) in [(128, 128, 128, 128, 128, 128),
+                                  (256, 512, 128, 128, 128, 128),
+                                  (512, 256, 384, 128, 128, 128),
+                                  (128, 1024, 256, 64, 128, 256)]:
+        for dt, tol in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
+            a, b = randn((M, K), gen, dt), randn((K, N), gen, dt)
+            out = systolic_gemm(a, b, bm=bm, bn=bn, bk=bk)
+            assert out.dtype == dt
+            check_close(f"systolic_gemm {M}x{K}x{N} {dt}", out,
+                        ref.gemm_ref(a, b), tol * K ** 0.5, tol)
+    # TinyLlama width: activations (512, d_model) @ W1 (d_model, d_ff), bf16,
+    # preempted at 3 of 8 K-blocks.  bf16 products are exact in fp32; only
+    # the fp32 summation order differs, so the fp32 chain's tolerance holds.
+    a = randn((512, 2048), gen, torch.bfloat16)
+    w = randn((2048, 5632), gen, torch.bfloat16)
+    acc = gemm_partial(a, w, torch.zeros((512, 5632), device=dev), 0, 3,
+                       bk=256)
+    acc = gemm_partial(a, w, acc, 3, 8, bk=256)
+    want = ref.gemm_partial_ref(a, w, torch.zeros((512, 5632), device=dev),
+                                0, 8, 256)
+    check_close("gemm_partial 512x2048x5632 bf16 split 3/8", acc, want,
+                1e-2, 1e-4)
+
+    # decode: main path (model layout, transposed cache view) and sweep
+    for dt in (torch.float32, torch.bfloat16):
+        q = randn((1, 32, 64), gen, dt)
+        kc = randn((1, 1024, 4, 64), gen, dt).transpose(1, 2)
+        vc = randn((1, 1024, 4, 64), gen, dt).transpose(1, 2)
+        for pos in (0, 17, 511, 1023):
+            check_close(f"decode B1 Hq32 Hkv4 dh64 S1024 pos {pos} {dt}",
+                        decode_attention_tpu(q, kc, vc, pos),
+                        ref.decode_attention_ref(q, kc, vc, pos),
+                        ATTN_TOL[dt])
+    for (B, Hq, Hkv, S, dh) in [(2, 8, 2, 256, 64), (1, 4, 4, 512, 32)]:
+        q = randn((B, Hq, dh), gen)
+        kc, vc = randn((B, Hkv, S, dh), gen), randn((B, Hkv, S, dh), gen)
+        for pos in (0, 17, 255):
+            check_close(f"decode sweep {B},{Hq},{Hkv},{S},{dh} pos {pos}",
+                        decode_attention_tpu(q, kc, vc, pos, block_s=64),
+                        ref.decode_attention_ref(q, kc, vc, pos), 5e-5)
+
+    # prefill: main path (model layout views) and sweep
+    for dt in (torch.float32, torch.bfloat16):
+        for S in (8, 512):
+            q = randn((1, S, 32, 64), gen, dt).transpose(1, 2)
+            k = randn((1, S, 4, 64), gen, dt).transpose(1, 2)
+            v = randn((1, S, 4, 64), gen, dt).transpose(1, 2)
+            check_close(f"flash B1 Hq32 Hkv4 dh64 S{S} {dt}",
+                        flash_attention_tpu(q, k, v),
+                        ref.flash_attention_ref(q, k, v), ATTN_TOL[dt])
+    for (B, Hq, Hkv, S, dh, bq, bkv) in [(1, 4, 4, 128, 64, 64, 64),
+                                         (2, 8, 2, 256, 64, 64, 128),
+                                         (1, 8, 1, 128, 128, 32, 32)]:
+        q = randn((B, Hq, S, dh), gen)
+        k, v = randn((B, Hkv, S, dh), gen), randn((B, Hkv, S, dh), gen)
+        for causal in (True, False):
+            check_close(f"flash sweep {B},{Hq},{Hkv},{S},{dh} causal={causal}",
+                        flash_attention_tpu(q, k, v, causal=causal,
+                                            block_q=bq, block_kv=bkv),
+                        ref.flash_attention_ref(q, k, v, causal=causal), 5e-5)
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# 3. full-width model, fp32, card against CPU
+# ---------------------------------------------------------------------------
+
+# fp32 on both sides; the card sums in other orders (cuBLAS, the kernels'
+# online softmax) than the CPU, through 22 layers; logits are of size ~1
+LOGIT_TOL = 1e-3
+
+
+def phase_model(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.common import CPU_RC
+    log("phase 3: full-width tinyllama-1.1b fp32, card (kernels) vs CPU "
+        "(plain versions), teacher-forced")
+    cfg = get_config("tinyllama-1.1b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p_dev = lm.init_params(cfg, gen, CPU_RC, device=dev)
+    p_cpu = _tree_to(p_dev, "cpu")
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (1, 8),
+                                               dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(prompt)}
+    lc, cc = lm.prefill(cfg, p_cpu, batch, CPU_RC, max_len=32)
+    ld, cd = lm.prefill(cfg, p_dev, batch, CPU_RC, max_len=32)
+    assert ld.shape == (1, cfg.vocab)
+    errs = [check_close("prefill logits", ld.cpu(), lc, LOGIT_TOL)]
+    check_close("prefill cache k", cd["ck"].cpu(), cc["ck"], LOGIT_TOL)
+    tok = int(torch.argmax(lc[0]))
+    for step in range(6):
+        lc, cc = lm.decode_step(cfg, p_cpu, torch.tensor([tok]), cc, CPU_RC)
+        ld, cd = lm.decode_step(cfg, p_dev, torch.tensor([tok]), cd, CPU_RC)
+        errs.append(check_close(f"decode step {step} logits", ld.cpu(), lc,
+                                LOGIT_TOL))
+        tok = int(torch.argmax(lc[0]))
+    RECORD["model_fp32_max_logit_err"] = max(errs)
+    del p_dev, cd
+    torch.cuda.empty_cache()
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# 4. serving at full width, bf16
+# ---------------------------------------------------------------------------
+
+def _ran(order):
+    """(decode steps, distinct requests) in a recorded step order."""
+    rids = []
+    for x in order:
+        if x == "hi":
+            continue
+        rids += [r for r in (x if isinstance(x, list) else [x])
+                 if r is not None]
+    return len(rids), len(set(rids))
+
+
+def phase_serving(dev):
+    from repro_torch.core.scheduler import Policy
+    from repro_torch.core.task import Crit
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    log("phase 4: MESC serving of full-width tinyllama-1.1b, bf16")
+    cfg, params, rc = serve.load_model("tinyllama-1.1b", dev)
+    scfg, sparams, src = serve.load_model("tinyllama-1.1b-smoke", "cpu")
+    L = cfg.n_layers
+    runs = [("mesc", 1, 8, 64), ("np", 1, 8, 64), ("mesc", 2, 8, 64),
+            ("np", 2, 8, 64), ("mesc", 1, 512, 1024)]
+    out = {}
+    for name, lanes, plen, max_len in runs:
+        policy = Policy.mesc() if name == "mesc" else Policy.non_preemptive()
+        tag = f"{name} lanes={lanes} prompt={plen} max_len={max_len}"
+        kw = dict(lanes=lanes, max_len=max_len)
+        reqs = serve.make_requests(cfg, np.random.default_rng(0),
+                                   prompt_len=plen)
+        order = []
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        got = serve.run(cfg, params, policy, reqs, rc=rc, order=order, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        cpu_order = []
+        serve.run(scfg, sparams, policy,
+                  serve.make_requests(scfg, np.random.default_rng(0),
+                                      prompt_len=plen),
+                  rc=src, order=cpu_order, **kw)
+        assert order == cpu_order, f"{tag}: step order differs from the CPU"
+        steps, prefills = _ran(order)
+        assert launches["decode_attention"] == L * steps, (tag, launches)
+        assert launches["flash_attention"] == L * prefills, (tag, launches)
+        his = {r.rid for r in reqs if r.crit == Crit.HI}
+        first = order[order.index("hi") + 1]
+        first = set(first if isinstance(first, list) else [first])
+        if name == "mesc":
+            want = his if lanes > 1 else {min(his)}
+            assert want <= first, f"{tag}: HI waited ({first})"
+        for r in got.values():
+            assert r.done and len(r.generated) == r.max_new_tokens
+            assert all(0 <= t < cfg.vocab for t in r.generated)
+        log(f" {tag}: {steps} decode steps, {prefills} prefills, "
+            f"{wall:.2f} s; launches {launches}; first step after HI "
+            f"arrival ran {sorted(first)}")
+        summary = serve.summarize(name, got)
+        out[tag] = {"steps": steps, "prefills": prefills, "wall_s": wall,
+                    "launches": launches,
+                    "ttft_latency_s": summary}
+    RECORD["serving"] = out
+    RECORD["decode_profile"] = profile_decode(cfg, params, rc)
+    last_launches = out["mesc lanes=1 prompt=512 max_len=1024"]["launches"]
+    del params
+    torch.cuda.empty_cache()
+    return last_launches
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return getattr(evt, name)
+    raise AttributeError("profiler event has no device time")
+
+
+def profile_decode(cfg, params, rc, steps: int = 5) -> dict:
+    """Where a decode step's time goes: host wall time per step against
+    the card's busy time (sum of kernel and copy time in a torch.profiler
+    trace), one request at position ~512 of a 1024-slot cache."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+    dev = params["embed"].device
+    prompt = torch.zeros((1, 512), dtype=torch.long)
+    t0 = time.perf_counter()
+    _, cache = lm.prefill(cfg, params, {"tokens": prompt}, rc, max_len=1024)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = torch.tensor([1], dtype=torch.int32, device=dev)
+    for _ in range(3):
+        _, cache = lm.decode_step(cfg, params, tok, cache, rc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        _, cache = lm.decode_step(cfg, params, tok, cache, rc)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            _, cache = lm.decode_step(cfg, params, tok, cache, rc)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
+    per_step = sum(e.count for e in kernels) / steps
+    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    out = {"prefill_512_wall_ms": prefill_ms,
+           "decode_step_wall_ms": wall_ms,
+           "decode_step_device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "device_ops_per_step": per_step,
+           "top_kernels_ms_per_step": {
+               e.key[:60]: _device_us(e) / 1e3 / steps for e in top}}
+    log(f"  decode step (pos ~512): wall {wall_ms:.2f} ms, card busy "
+        f"{busy_ms:.3f} ms in {per_step:.0f} kernels and copies, idle "
+        f"share {out['device_idle_share']:.3f}; prefill of 512 tokens "
+        f"{prefill_ms:.1f} ms")
+    for name, ms in out["top_kernels_ms_per_step"].items():
+        log(f"    {ms:.4f} ms/step  {name}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 5. preemptible GEMM
+# ---------------------------------------------------------------------------
+
+def phase_gemm(dev):
+    from repro_torch.kernels import _build
+    from repro_torch.launch import preemptible_gemm
+    log("phase 5: preemptible GEMM (1024^3 fp32, bk 128, HI at 3 of 8)")
+    preemptible_gemm.run(dev)                  # warm-up (first launches)
+    _build.reset_launches()
+    out = preemptible_gemm.run(dev)
+    launches = dict(_build.LAUNCHES)
+    assert launches["gemm_partial"] == 2 and launches["systolic_gemm"] == 1, \
+        launches
+    assert out["max_abs_err"] < 1e-2 and out["hi_max_abs_err"] < 1e-3, out
+    log(f"  context save {out['save_s']*1e3:.3f} ms, restore "
+        f"{out['restore_s']*1e3:.3f} ms for {out['acc_bytes']/2**20:.1f} MiB;"
+        f" HI product {out['hi_s']*1e3:.3f} ms; resumed max|err| "
+        f"{out['max_abs_err']:.2e}; launches {launches}")
+    RECORD["preemptible_gemm"] = out
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 6. timing at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def _bound(flops, nbytes, peak):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_timing(dev, launches, card, power):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_tpu
+    from repro_torch.kernels.flash_attention import flash_attention_tpu
+    from repro_torch.kernels.systolic_gemm import gemm_partial, systolic_gemm
+    F = torch.nn.functional
+    log("phase 6: kernel times at the main path's shapes (device time: "
+        "median of 30 CUDA-graph replays of 10 calls, CUDA events)")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+
+    def row(name, source, replaces, kern, plain, lib, flops, nbytes, peak,
+            tol, shape):
+        err = max_err(kern(), plain())
+        assert err <= tol, (name, err, tol)
+        bound_ms, bound_by = _bound(flops, nbytes, peak)
+        r = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "tpu_kernel": replaces,
+             "launches": launches[name], "max_abs_err": err, "tol": tol,
+             "ms": cuda_time_ms(kern), "plain_ms": cuda_time_ms(plain),
+             "library_ms": cuda_time_ms(lib) if lib else None,
+             "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape,
+             "card": card, "power_limit": power}
+        r["kernel_ms"] = r["ms"]
+        r["call_ms"] = host_call_ms(kern)
+        rows.append(r)
+        log(f"  {name} {shape}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, host "
+            f"call {r['call_ms']:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by}), max|err| {err:.2e}")
+
+    # gemm_partial: the preemptible GEMM's resume call, K blocks [3, 8) of
+    # 1024^3 fp32 with bk 128 (K range 640)
+    M = K = N = 1024
+    A, B = randn((M, K), gen), randn((K, N), gen)
+    acc = randn((M, N), gen)
+    kr = 640
+    row("gemm_partial", "src/repro_torch/kernels/csrc/gemm.cu",
+        "src/repro/kernels/systolic_gemm.py:113",
+        lambda: gemm_partial(A, B, acc, 3, 8, bk=128),
+        lambda: ref.gemm_partial_ref(A, B, acc, 3, 8, 128),
+        lambda: torch.addmm(acc, A[:, 384:], B[384:]),
+        2 * M * N * kr, 4 * (M * kr + kr * N + 2 * M * N), PEAK_FP32,
+        1e-2, "A 1024x1024 B 1024x1024 fp32, K blocks [3,8) of 128")
+    # systolic_gemm: the preemptible GEMM's HI product, 128^3 fp32
+    Ah, Bh = randn((128, 128), gen), randn((128, 128), gen)
+    row("systolic_gemm", "src/repro_torch/kernels/csrc/gemm.cu",
+        "src/repro/kernels/systolic_gemm.py:70",
+        lambda: systolic_gemm(Ah, Bh, bm=128, bn=128, bk=128),
+        lambda: ref.gemm_ref(Ah, Bh), lambda: torch.matmul(Ah, Bh),
+        2 * 128 ** 3, 4 * 3 * 128 * 128, PEAK_FP32, 1e-3,
+        "128x128x128 fp32")
+    # decode: one layer of the 512-token serving run at its last position
+    bf = torch.bfloat16
+    pos, S = 535, 1024
+    q = randn((1, 32, 64), gen, bf)
+    kc = randn((1, S, 4, 64), gen, bf).transpose(1, 2)
+    vc = randn((1, S, 4, 64), gen, bf).transpose(1, 2)
+    live = pos + 1
+    # the library call gets the KV heads repeated to Hq beforehand
+    kr = kc[:, :, :live].repeat_interleave(8, dim=1)
+    vr = vc[:, :, :live].repeat_interleave(8, dim=1)
+    row("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:59",
+        lambda: decode_attention_tpu(q, kc, vc, pos),
+        lambda: ref.decode_attention_ref(q, kc, vc, pos),
+        lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr),
+        4 * 32 * live * 64, 2 * (2 * 4 * live * 64 + 2 * 32 * 64),
+        PEAK_BF16, ATTN_TOL[bf],
+        f"q 1x32x64, cache 1x4x{S}x64 bf16, pos {pos}")
+    # prefill: one layer of the 512-token prompt
+    S = 512
+    q = randn((1, S, 32, 64), gen, bf).transpose(1, 2)
+    k = randn((1, S, 4, 64), gen, bf).transpose(1, 2)
+    v = randn((1, S, 4, 64), gen, bf).transpose(1, 2)
+    pairs = S * (S + 1) // 2
+    kr, vr = k.repeat_interleave(8, dim=1), v.repeat_interleave(8, dim=1)
+    row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:64",
+        lambda: flash_attention_tpu(q, k, v),
+        lambda: ref.flash_attention_ref(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True),
+        4 * 32 * pairs * 64, 2 * (2 * 32 * S * 64 + 2 * 4 * S * 64),
+        PEAK_BF16, ATTN_TOL[bf], f"q 1x32x{S}x64, kv 1x4x{S}x64 bf16, causal")
+
+    # the same GEMM kernel at TinyLlama's FFN width (not a main-path call)
+    a = randn((512, 2048), gen, bf)
+    w = randn((2048, 5632), gen, bf)
+    extra = {"name": "systolic_gemm@tinyllama_w1",
+             "shape": "512x2048x5632 bf16 -> bf16",
+             "ms": cuda_time_ms(lambda: systolic_gemm(a, w)),
+             "library_ms": cuda_time_ms(lambda: torch.matmul(a, w)),
+             "bound_ms": _bound(2 * 512 * 2048 * 5632,
+                                2 * (512 * 2048 + 2048 * 5632 + 512 * 5632),
+                                PEAK_BF16)[0],
+             "card": card, "power_limit": power}
+    log(f"  {extra['name']}: kernel {extra['ms']:.4f} ms, torch.matmul "
+        f"{extra['library_ms']:.4f} ms, bound {extra['bound_ms']:.5f} ms")
+    RECORD["kernels"] = rows
+    RECORD["extra_timings"] = [extra]
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.device import resolve_device
+    dev = resolve_device()
+    t_start = time.perf_counter()
+    line = smi()
+    card, power = [s.strip() for s in line.split(",", 1)]
+    log(f"phase 1: {line}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    for ln in _build.ptxas_report().splitlines():
+        if "registers" in ln or "spill" in ln:
+            log("  ptxas: " + ln.strip())
+    RECORD.update(card=card, power_limit=power, torch=torch.__version__,
+                  cuda=torch.version.cuda,
+                  build_s=time.perf_counter() - t0)
+
+    phase_kernels(dev)
+    phase_model(dev)
+    serve_launches = phase_serving(dev)
+    gemm_launches = phase_gemm(dev)
+    launches = {**serve_launches,
+                "gemm_partial": gemm_launches["gemm_partial"],
+                "systolic_gemm": gemm_launches["systolic_gemm"]}
+    rows = phase_timing(dev, launches, card, power)
+    RECORD["wall_s"] = time.perf_counter() - t_start
+
+    out_dir = ROOT / "results"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))
+    log(f"total {RECORD['wall_s']:.1f} s")
+    log(json.dumps({"kernels": rows, "card": card, "power_limit": power}))
+    log(smi())
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

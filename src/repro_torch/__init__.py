@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of the MESC reproduction.
+
+The JAX package ``repro`` is the reference; this package has its layout
+and names and runs on one NVIDIA Hopper card:
+
+  runtime.device  — device resolution (CUDA unless the CPU is asked for)
+  configs         — own copies of ArchConfig and the TinyLlama configs
+  core            — Crit / Mode / Policy and the MESC serving lane
+  kernels         — hand-written sm_90a CUDA kernels, each beside its
+                    plain PyTorch version (kernels/ref.py)
+  models          — the dense GQA decoder (prefill / decode_step)
+  launch          — the batch serving drive and the preemptible GEMM
+
+Nothing here imports ``jax`` or ``repro``.
+"""

@@ -1,0 +1,164 @@
+"""Build and load the port's CUDA kernels (plain C interface + ctypes).
+
+The sources under ``kernels/csrc/`` are compiled for ``sm_90a`` at first
+CUDA use into ``build/repro_torch_kernels/`` at the repository root,
+keyed by a hash of the sources and the flags, so a fresh checkout builds
+them with nothing but ``nvcc``.  One ``nvcc`` per source runs in
+parallel, then one link makes the shared library.  Importing this
+module needs no ``nvcc``: the CPU tests import every module.
+
+Each C entry point returns ``cudaGetLastError()`` after its launches;
+:func:`check` raises when that is not 0, because a refused launch
+never runs and a later synchronize does not report it.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+# launches of each kernel wrapper; a wrapper adds one where it launches
+# its kernel and nowhere else (chip_smoke.py reads these)
+LAUNCHES: Dict[str, int] = {"gemm_partial": 0, "systolic_gemm": 0,
+                            "decode_attention": 0, "flash_attention": 0}
+
+# C entry points: name -> argtypes (c_void_p for every pointer and the
+# stream, c_int / c_longlong for sizes and strides)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    # in_dtype, out_dtype, A, B, acc_in, C, M, N, K, lda, ldb, ldacc, ldc,
+    # stream
+    "repro_gemm": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P],
+    # dtype, q, k, v, out, part_m, part_l, part_acc, B, Hkv, G, dh, pos,
+    # n_split, q strides (b, h), k strides (b, h, s), v strides (b, h, s),
+    # scale, stream
+    "repro_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
+                               ctypes.c_float, _P],
+    # dtype, q, k, v, out, B, Hq, Hkv, S, Skv, dh, causal,
+    # q/k/v/o strides (b, h, s) each, scale, stream
+    "repro_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                              ctypes.c_float, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the port's "
+                           "kernels are built from source at first use")
+    return found
+
+
+def _build(lib_path: Path) -> None:
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
+                   "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for src, _, p in procs:
+            out, _ = p.communicate()
+            (Path(tmp) / (src.stem + ".log")).write_text(out)
+            if p.returncode != 0:
+                failed.append(f"{src.name}:\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp_lib = Path(tmp) / lib_path.name
+        out = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *[str(o) for _, o, _ in procs],
+             "-o", str(tmp_lib)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        if out.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + out.stdout)
+        for src, _, _ in procs:
+            shutil.copy(Path(tmp) / (src.stem + ".log"),
+                        lib_path.with_name(f"{lib_path.stem}.{src.stem}.log"))
+        os.replace(tmp_lib, lib_path)          # atomic for other builders
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib_path = BUILD_DIR / f"librepro_torch_kernels_{_key()}.so"
+            if not lib_path.exists():
+                _build(lib_path)
+            handle = ctypes.CDLL(str(lib_path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def ptxas_report() -> str:
+    """What ``-Xptxas -v`` said for each source of the current build."""
+    lib()
+    stem = f"librepro_torch_kernels_{_key()}"
+    return "\n".join(p.read_text() for p in
+                     sorted(BUILD_DIR.glob(f"{stem}.*.log")))
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    try:
+        return DTYPE_CODE[t.dtype]
+    except KeyError:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}") \
+            from None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

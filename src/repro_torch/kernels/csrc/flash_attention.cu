@@ -1,0 +1,163 @@
+// Causal (or full) flash attention for Hopper (sm_90a), the prefill path.
+//
+// Replaces: src/repro/kernels/flash_attention.py::flash_attention_tpu
+// (_flash_kernel).
+//
+// What bounds it on the H100: a causal pass over S tokens does ~2*S^2*dh
+// FLOP per query head on 4*S*dh values, so at the 512-token prompt it is
+// operations-bound (989 TFLOP/s bf16 on the tensor cores); at the 8-token
+// serving prompt it is launch-bound.
+//
+// What the design does about it, simply and right first: a grid of
+// (B*Hq, ceil(S/BQ)) blocks.  A block owns BQ query rows, one thread per
+// row, with the row's running max m, sum l and fp32 accumulator acc[DH] in
+// registers (the reference keeps them in VMEM scratch across its sequential
+// KV grid axis; here the KV loop runs inside the block).  It walks KV tiles
+// of BKV keys staged in shared memory, only up to its diagonal: KV tiles the
+// reference skips as fully masked (ki*bkv >= (qi+1)*bq) are never loaded.
+// Per tile it applies the reference's online softmax in fp32: causal
+// mask, m_new, p = exp(s - m_new) * (s > NEG_INF*0.5), corr = exp(m - m_new),
+// p rounded to v's dtype before the PV product.  GQA maps query head h to
+// KV head h / G.  Every tensor goes in through its strides, so the model's
+// (B,S,H,dh) q/k/v are passed as views; the ragged S edge (an 8-token
+// prompt fits no tile) is masked.  Tensor-core (wgmma) QK^T and PV with
+// TMA-fed tiles are later work.
+#include "common.cuh"
+
+using namespace repro;
+
+namespace {
+
+template <int DH> struct Tile {
+  // 64 query rows and 32 keys per tile; dh 128 halves both to stay under
+  // the 48 KB of static shared memory
+  static constexpr int BQ = DH >= 128 ? 32 : 64;
+  static constexpr int BKV = DH >= 128 ? 16 : 32;
+};
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(Tile<DH>::BQ)
+flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
+             int S, int Skv, int causal, i64 sqb, i64 sqh, i64 sqs, i64 skb,
+             i64 skh, i64 sks, i64 svb, i64 svh, i64 svs, i64 sob, i64 soh,
+             i64 sos, float scale) {
+  constexpr int BQ = Tile<DH>::BQ, BKV = Tile<DH>::BKV;
+  __shared__ float qs[BQ][DH + 1];  // padded: each thread reads its own row
+  __shared__ float ks[BKV][DH];     // every thread reads the same row
+  __shared__ float vs[BKV][DH];
+  const int t = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / Hq, hq = bh % Hq, hk = hq / (Hq / Hkv);
+  const int q0 = blockIdx.y * BQ;
+  const int qpos = q0 + t;
+
+  const T* qb = q + b * sqb + hq * sqh;
+  for (int i = t; i < BQ * DH; i += BQ) {
+    const int r = i / DH, d = i % DH;
+    qs[r][d] = (q0 + r < S) ? to_float(qb[(q0 + r) * sqs + d]) : 0.f;
+  }
+  const T* kb = k + b * skb + hk * skh;
+  const T* vb = v + b * svb + hk * svh;
+
+  float m = NEG_INF, l = 0.f;
+  float acc[DH];
+#pragma unroll
+  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
+
+  // live keys: below (block's last row + 1) when causal, the reference's
+  // block-skipping rule with the block's own edge
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
+    __syncthreads();
+    for (int i = t; i < BKV * DH; i += BQ) {
+      const int r = i / DH, d = i % DH, kp = k0 + r;
+      ks[r][d] = kp < Skv ? to_float(kb[kp * sks + d]) : 0.f;
+      vs[r][d] = kp < Skv ? to_float(vb[kp * svs + d]) : 0.f;
+    }
+    __syncthreads();
+
+    float s[BKV];
+    float m_new = m;
+#pragma unroll
+    for (int j = 0; j < BKV; ++j) {
+      float dot = 0.f;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) dot = fmaf(qs[t][d], ks[j][d], dot);
+      const int kp = k0 + j;
+      const bool live = kp < Skv && (!causal || kp <= qpos);
+      s[j] = live ? dot * scale : NEG_INF;
+      m_new = fmaxf(m_new, s[j]);
+    }
+    const float corr = expf(m - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BKV; ++j) {
+      const float p = expf(s[j] - m_new) * (s[j] > NEG_INF * 0.5f ? 1.f : 0.f);
+      psum += p;
+      s[j] = round_to<T>(p);  // p.astype(v.dtype)
+    }
+    l = l * corr + psum;
+#pragma unroll
+    for (int d = 0; d < DH; ++d) {
+      float a = acc[d] * corr;
+#pragma unroll
+      for (int j = 0; j < BKV; ++j) a = fmaf(s[j], vs[j][d], a);
+      acc[d] = a;
+    }
+    m = m_new;
+  }
+
+  if (qpos < S) {
+    T* ob = o + b * sob + hq * soh + qpos * sos;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int d = 0; d < DH; ++d) ob[d] = from_float<T>(acc[d] * inv);
+  }
+}
+
+template <typename T, int DH>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Hq, int Hkv, int S, int Skv, int causal, const i64* st,
+           float scale, cudaStream_t s) {
+  constexpr int BQ = Tile<DH>::BQ;
+  dim3 grid(B * Hq, (S + BQ - 1) / BQ);
+  flash_kernel<T, DH><<<grid, BQ, 0, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hkv, S, Skv, causal,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      st[10], st[11], scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(int dh, const void* q, const void* k, const void* v, void* o,
+             int B, int Hq, int Hkv, int S, int Skv, int causal,
+             const i64* st, float scale, cudaStream_t s) {
+  switch (dh) {
+    case 16: return launch<T, 16>(q, k, v, o, B, Hq, Hkv, S, Skv, causal, st, scale, s);
+    case 32: return launch<T, 32>(q, k, v, o, B, Hq, Hkv, S, Skv, causal, st, scale, s);
+    case 64: return launch<T, 64>(q, k, v, o, B, Hq, Hkv, S, Skv, causal, st, scale, s);
+    case 128: return launch<T, 128>(q, k, v, o, B, Hq, Hkv, S, Skv, causal, st, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16; dh in {16, 32, 64, 128}.  Strides are
+// in elements, (batch, head, sequence) for q, k, v and o; the last
+// dimension is contiguous.
+extern "C" int repro_flash_attention(
+    int dtype, const void* q, const void* k, const void* v, void* o, int B,
+    int Hq, int Hkv, int S, int Skv, int dh, int causal, i64 sqb, i64 sqh,
+    i64 sqs, i64 skb, i64 skh, i64 sks, i64 svb, i64 svh, i64 svs, i64 sob,
+    i64 soh, i64 sos, float scale, void* stream) {
+  const i64 st[12] = {sqb, sqh, sqs, skb, skh, sks,
+                      svb, svh, svs, sob, soh, sos};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return dispatch<float>(dh, q, k, v, o, B, Hq, Hkv, S, Skv, causal, st,
+                           scale, s);
+  return dispatch<__nv_bfloat16>(dh, q, k, v, o, B, Hq, Hkv, S, Skv, causal,
+                                 st, scale, s);
+}

@@ -1,0 +1,34 @@
+"""Public wrappers for the kernels (twin of the reference's ``kernels/ops.py``).
+
+A tensor on the CPU goes to the kernel's plain version (``kernels/ref.py``);
+a CUDA tensor goes to the hand-written kernel, or the call raises.  There
+is no fallback from one to the other.  ``_build.LAUNCHES`` counts the
+kernel launches of each wrapper.
+
+The RG-LRU scan (``rglru`` in the reference) comes with the hybrid
+family; until then only its plain version exists (``ref.rglru_scan_ref``).
+"""
+from __future__ import annotations
+
+from repro_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
+from repro_torch.kernels.decode_attention import decode_attention_tpu
+from repro_torch.kernels.flash_attention import flash_attention_tpu
+from repro_torch.kernels.systolic_gemm import gemm_partial, systolic_gemm
+
+
+def gemm(a, b, *, bm=256, bn=256, bk=256):
+    return systolic_gemm(a, b, bm=bm, bn=bn, bk=bk)
+
+
+def gemm_resume(a, b, acc, k_begin, k_end, *, bk=256):
+    """Preemptible GEMM step: process K blocks [k_begin, k_end)."""
+    return gemm_partial(a, b, acc, k_begin, k_end, bk=bk)
+
+
+def flash_attention(q, k, v, *, causal=True, block_q=512, block_kv=512):
+    return flash_attention_tpu(q, k, v, causal=causal, block_q=block_q,
+                               block_kv=block_kv)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, block_s=1024):
+    return decode_attention_tpu(q, k_cache, v_cache, pos, block_s=block_s)

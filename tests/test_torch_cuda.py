@@ -1,0 +1,97 @@
+"""The port's CUDA kernels against their plain versions on the card.
+
+Marked ``cuda``: they need an NVIDIA card and ``nvcc`` and skip anywhere
+else.  On the card they run without the JAX package:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.decode_attention import decode_attention_tpu
+from repro_torch.kernels.flash_attention import flash_attention_tpu
+from repro_torch.kernels.systolic_gemm import gemm_partial, systolic_gemm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the kernels run only there)")
+    return torch.Generator(device="cuda").manual_seed(5)
+
+
+def _randn(gen, *shape, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+@pytest.mark.parametrize("split", [1, 2, 3])
+def test_gemm_preempt_resume(gen, split):
+    a, b = _randn(gen, 512, 512), _randn(gen, 512, 512)
+    acc = gemm_partial(a, b, torch.zeros(512, 512, device="cuda"), 0, split,
+                       bk=128)
+    acc = gemm_partial(a, b, acc.cpu().cuda(), split, 4, bk=128)
+    want = ref.gemm_ref(a, b)
+    assert _err(acc, want) <= 1e-2 + 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("M,K,N", [(128, 1024, 256), (200, 100, 72)])
+def test_systolic_gemm(gen, M, K, N, dtype, tol):
+    a, b = _randn(gen, M, K, dtype=dtype), _randn(gen, K, N, dtype=dtype)
+    out = systolic_gemm(a, b, bm=M, bn=N, bk=K)
+    assert out.dtype == dtype
+    want = ref.gemm_ref(a, b)
+    assert _err(out, want) <= tol * K ** 0.5 + tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("pos", [0, 63, 64, 200])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_decode_attention_on_a_cache_view(gen, pos, dtype, tol):
+    q = _randn(gen, 2, 8, 64, dtype=dtype)
+    kc = _randn(gen, 2, 256, 2, 64, dtype=dtype).transpose(1, 2)
+    vc = _randn(gen, 2, 256, 2, 64, dtype=dtype).transpose(1, 2)
+    assert _err(decode_attention_tpu(q, kc, vc, pos),
+                ref.decode_attention_ref(q, kc, vc, pos)) <= tol
+
+
+@pytest.mark.parametrize("S,dh", [(8, 64), (100, 16), (128, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ragged_and_views(gen, S, dh, causal):
+    q = _randn(gen, 1, S, 8, dh).transpose(1, 2)
+    k = _randn(gen, 1, S, 2, dh).transpose(1, 2)
+    v = _randn(gen, 1, S, 2, dh).transpose(1, 2)
+    out = flash_attention_tpu(q, k, v, causal=causal)
+    assert out.shape == (1, 8, S, dh)
+    assert _err(out, ref.flash_attention_ref(q, k, v, causal=causal)) <= 5e-5
+
+
+def test_each_call_counts_one_launch(gen):
+    _build.reset_launches()
+    a = _randn(gen, 64, 64)
+    systolic_gemm(a, a)
+    gemm_partial(a, a, torch.zeros(64, 64, device="cuda"), 0, 1, bk=64)
+    q = _randn(gen, 1, 4, 16, 32)
+    flash_attention_tpu(q, q, q)
+    decode_attention_tpu(q[:, :, 0], q, q, 9)
+    assert _build.LAUNCHES == {"gemm_partial": 1, "systolic_gemm": 1,
+                               "decode_attention": 1, "flash_attention": 1}
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    h = _randn(gen, 64, 64, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        systolic_gemm(h, h)
+    q = _randn(gen, 1, 4, 16, 48)
+    with pytest.raises(ValueError):
+        flash_attention_tpu(q, q, q)               # head dim 48
+    with pytest.raises(ValueError):
+        decode_attention_tpu(q[:, :, 0], q, q, 16)  # pos outside the cache

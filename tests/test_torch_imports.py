@@ -1,0 +1,105 @@
+"""The PyTorch port stands alone: it imports neither jax nor the reference
+package, and it runs on the card unless the CPU is asked for by name."""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_modules():
+    import repro_torch
+    names = ["repro_torch"]
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(info.name)
+    return sorted(names)
+
+
+def _forbidden(name: str) -> bool:
+    return name == "jax" or name.startswith("jax.") or name == "repro" \
+        or name.startswith("repro.")
+
+
+def test_every_port_module_is_found():
+    mods = _port_modules()
+    for want in ("repro_torch.core.serving", "repro_torch.models.lm",
+                 "repro_torch.kernels.ops", "repro_torch.kernels._build",
+                 "repro_torch.launch.serve",
+                 "repro_torch.launch.preemptible_gemm",
+                 "repro_torch.runtime.device"):
+        assert want in mods
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    # a subprocess: tests/conftest.py has already imported jax here
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(repr(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import_in_source(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), \
+            f"{path}:{node.lineno} imports {names}"
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    from repro_torch.runtime.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda:0")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("tinyllama-1.1b-smoke")
+    with pytest.raises(RuntimeError):
+        lm.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError):
+        lm.init_cache(cfg, 1, 8)
+
+
+def test_kernel_build_key_covers_every_source():
+    from repro_torch.kernels import _build
+    srcs = {p.name for p in _build._sources()}
+    assert {"gemm.cu", "decode_attention.cu", "flash_attention.cu",
+            "common.cuh"} <= srcs
+    assert _build._key() == _build._key()
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert _build.BUILD_DIR == ROOT / "build" / "repro_torch_kernels"

@@ -1,0 +1,235 @@
+"""The port's MESC serving lane against the reference's, on the five
+model-backed scenarios of tests/test_serving.py (TestMESCServing x3,
+TestMultiLaneServing x2): same step order, same generated tokens, same
+saves and preemptions, and an empty arena at the end.  Both servers run
+tinyllama-1.1b-smoke in fp32 on the CPU with the same parameters (the
+reference's, converted by ``params_from_jax``)."""
+import dataclasses
+from typing import Any
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import get_config as j_get_config
+from repro.core import scheduler as j_scheduler
+from repro.core import serving as j_serving
+from repro.core import task as j_task
+from repro.models import lm as j_lm
+from repro.models.common import CPU_RC as J_CPU_RC
+from repro_torch.configs import get_config
+from repro_torch.core import scheduler, serving, task
+from repro_torch.models import lm
+from repro_torch.models.common import CPU_RC
+
+ARCH = "tinyllama-1.1b-smoke"
+
+
+@dataclasses.dataclass(frozen=True)
+class Side:
+    serving: Any
+    Crit: Any
+    Policy: Any
+    cfg: Any
+    params: Any
+
+
+_SIDES = {}
+
+
+def _sides():
+    if not _SIDES:
+        jcfg = j_get_config(ARCH)
+        jp = j_lm.init_params(jcfg, jax.random.PRNGKey(0), J_CPU_RC)
+        tcfg = get_config(ARCH)
+        tp = lm.params_from_jax(tcfg, jax.tree_util.tree_map(np.asarray, jp),
+                                CPU_RC, device="cpu")
+        _SIDES["jax"] = Side(j_serving, j_task.Crit, j_scheduler.Policy,
+                             jcfg, jp)
+        _SIDES["torch"] = Side(serving, task.Crit, scheduler.Policy, tcfg, tp)
+    return _SIDES
+
+
+def _req(s: Side, rid, crit, prio, n=6):
+    rng = np.random.default_rng(rid)
+    return s.serving.Request(rid=rid, priority=prio,
+                             prompt=rng.integers(0, s.cfg.vocab, 8,
+                                                 dtype=np.int32),
+                             max_new_tokens=n, crit=getattr(s.Crit, crit))
+
+
+def _drain(srv, order):
+    while True:
+        ran = srv.step()
+        order.append(ran)
+        if ran is None or (isinstance(ran, list)
+                           and all(x is None for x in ran)):
+            return
+
+
+def _record(order, servers):
+    reqs = {}
+    for name, srv in servers.items():
+        for rid, r in srv.requests.items():
+            reqs[(name, rid)] = (list(r.generated), r.saves, r.preemptions,
+                                 r.done)
+    held = {name: [srv.arena.held(i) for i in range(len(srv.arena.quotas))]
+            for name, srv in servers.items()}
+    return {"order": order, "requests": reqs, "held": held}
+
+
+def hi_preempts_lo(s: Side):
+    srv = s.serving.MESCServer(s.cfg, s.params, policy=s.Policy.mesc(),
+                               max_len=32)
+    order = []
+    srv.submit(_req(s, 0, "LO", 10, n=12))
+    order += [srv.step() for _ in range(2)]
+    srv.submit(_req(s, 1, "HI", 0, n=3))
+    order.append("hi")
+    order += [srv.step() for _ in range(4)]
+    assert order[3] == 1                  # HI runs at the very next step
+    _drain(srv, order)
+    return _record(order, {"srv": srv})
+
+
+def non_preemptive_runs_to_completion(s: Side):
+    srv = s.serving.MESCServer(s.cfg, s.params,
+                               policy=s.Policy.non_preemptive(), max_len=32)
+    order = []
+    srv.submit(_req(s, 0, "LO", 10, n=8))
+    order.append(srv.step())
+    srv.submit(_req(s, 1, "HI", 0, n=2))
+    order += [srv.step() for _ in range(7)]
+    assert all(r == 0 for r in order)     # LO holds the accelerator
+    _drain(srv, order)
+    return _record(order, {"srv": srv})
+
+
+def bank_pool_eviction_and_restore(s: Side):
+    out = {}
+    order = []
+    for name, slots in (("pool1", 1), ("pool4", 4)):
+        srv = s.serving.MESCServer(s.cfg, s.params, policy=s.Policy.mesc(),
+                                   max_len=32, resident_slots=slots)
+        srv.submit(_req(s, 0, "LO", 1))
+        order += [srv.step() for _ in range(3)]
+        srv.submit(_req(s, 1, "LO", 2))
+        _drain(srv, order)
+        out[name] = srv
+    rec = _record(order, out)
+    for rid in (0, 1):                    # eviction is output-preserving
+        assert rec["requests"][("pool1", rid)][0] \
+            == rec["requests"][("pool4", rid)][0]
+    return rec
+
+
+def lanes_partition_and_preserve_output(s: Side):
+    msrv = s.serving.MultiLaneServer(s.cfg, s.params, n_lanes=2, max_len=32,
+                                     total_slots=2, heuristic="crit_aware")
+    reqs = [_req(s, 0, "HI", 0), _req(s, 1, "HI", 1),
+            _req(s, 2, "LO", 10), _req(s, 3, "LO", 11)]
+    lanes = [msrv.submit(r) for r in reqs]
+    assert sorted(lanes[:2]) == [0, 1]    # HI spread one per lane
+    order = [lanes]
+    _drain(msrv, order)
+    ref = s.serving.MESCServer(s.cfg, s.params, max_len=32, resident_slots=4)
+    for r in [_req(s, 0, "HI", 0), _req(s, 1, "HI", 1),
+              _req(s, 2, "LO", 10), _req(s, 3, "LO", 11)]:
+        ref.submit(r)
+    _drain(ref, order)
+    rec = _record(order, {"multi": msrv, "single": ref})
+    for rid in range(4):
+        assert rec["requests"][("multi", rid)][0] \
+            == rec["requests"][("single", rid)][0]
+    return rec
+
+
+def non_preemptive_lane_isolation(s: Side):
+    msrv = s.serving.MultiLaneServer(s.cfg, s.params, n_lanes=2, max_len=32,
+                                     policy=s.Policy.non_preemptive())
+    order = []
+    msrv.submit(_req(s, 0, "LO", 10, n=10))
+    order.append(msrv.step())
+    hi_lane = msrv.submit(_req(s, 1, "HI", 0, n=2))
+    assert hi_lane != msrv.lane_of[0]
+    ran = msrv.step()
+    assert ran[hi_lane] == 1              # HI runs immediately
+    order += [hi_lane, ran]
+    _drain(msrv, order)
+    return _record(order, {"multi": msrv})
+
+
+SCENARIOS = [hi_preempts_lo, non_preemptive_runs_to_completion,
+             bank_pool_eviction_and_restore,
+             lanes_partition_and_preserve_output,
+             non_preemptive_lane_isolation]
+
+
+@pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)
+def test_port_serves_like_the_reference(scenario):
+    sides = _sides()
+    want = scenario(sides["jax"])
+    got = scenario(sides["torch"])
+    assert got["order"] == want["order"]
+    assert got["requests"] == want["requests"]
+    assert all(r[3] for r in got["requests"].values())   # all finished
+    assert all(h == 0 for hs in got["held"].values() for h in hs)
+    assert got["held"] == want["held"]
+
+
+def test_eviction_moves_the_cache_to_host_and_back():
+    s = _sides()["torch"]
+    srv = s.serving.MESCServer(s.cfg, s.params, max_len=32, resident_slots=1)
+    a, b = _req(s, 0, "LO", 1), _req(s, 1, "LO", 0)
+    srv.submit(a)
+    srv.step()
+    srv.submit(b)                        # higher priority, pool of one
+    srv.step()
+    assert a.saves == 1 and not a.resident
+    assert a.cache["ck"].device.type == "cpu" and a.cache["pos"] == 9
+    srv.run()
+    assert a.done and b.done and a.cache is None
+
+
+def test_heuristics_and_mode_severity_are_the_reference_tables():
+    from repro.core.platform import HEURISTICS as J_HEURISTICS
+    assert serving.HEURISTICS == tuple(J_HEURISTICS)
+    assert {m.value: v for m, v in scheduler.MODE_SEVERITY.items()} \
+        == {m.value: v for m, v in j_scheduler.MODE_SEVERITY.items()}
+    assert scheduler.Policy.amc().name == j_scheduler.Policy.amc().name
+    with pytest.raises(ValueError):
+        serving.MultiLaneServer(None, None, heuristic="best_fit")
+
+
+@pytest.mark.parametrize("lanes", [1, 2])
+@pytest.mark.parametrize("policy", ["mesc", "np"])
+def test_batch_drive_on_the_cpu(policy, lanes):
+    """launch/serve.py's batch drive: every request finishes, and under
+    MESC the HI requests run at the step after they arrive."""
+    from repro_torch.launch import serve as tserve
+    cfg, params, rc = tserve.load_model(ARCH, "cpu")
+    pol = scheduler.Policy.mesc() if policy == "mesc" \
+        else scheduler.Policy.non_preemptive()
+    reqs = tserve.make_requests(cfg, np.random.default_rng(0))
+    order = []
+    got = tserve.run(cfg, params, pol, reqs, lanes=lanes, rc=rc,
+                     order=order)
+    assert sorted(got) == [r.rid for r in reqs]
+    assert all(r.done and len(r.generated) == r.max_new_tokens
+               for r in got.values())
+    first = order[order.index("hi") + 1]
+    first = set(first) if isinstance(first, list) else {first}
+    his = {r.rid for r in reqs if r.crit == task.Crit.HI}
+    if policy == "mesc":
+        assert (his if lanes > 1 else {min(his)}) <= first
+    else:
+        assert not his & first            # HI waits behind running LO
+    summary = tserve.summarize(policy, got)
+    assert set(summary) == {"HI", "LO"}
+
+
+def test_preemptible_gemm_on_the_cpu():
+    from repro_torch.launch import preemptible_gemm
+    out = preemptible_gemm.run("cpu", M=96, K=256, N=64, bk=32, split=3)
+    assert out["nk"] == 8 and out["acc_bytes"] == 96 * 64 * 4
+    assert out["max_abs_err"] < 1e-3 and out["hi_max_abs_err"] < 1e-4
