@@ -7,20 +7,29 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 and then, failing on the first phase that goes wrong:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA
-   versions and the kernels' build time;
+   versions, the kernels' build time and ``ptxas`` register/spill lines;
 2. holds every kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at the sweep shapes of tests/test_kernels.py,
-   in fp32 and bf16;
-3. checks the full-width TinyLlama-1.1B model in fp32, teacher-forced,
-   on the card (kernels) against the CPU (plain versions);
-4. serves full-width TinyLlama-1.1B in bf16 through the port's MESC
-   server (the batch drive of ``repro_torch.launch.serve``), checking the
-   step order against the CPU port, that HI requests run at the step
-   after they arrive, and that the attention kernels launched once per
-   layer per decode step / prefill;
+   the main paths' shapes and at the sweep shapes of tests/test_kernels.py,
+   in fp32 and bf16: the GEMM, decode and flash kernels at TinyLlama's
+   shapes, the RG-LRU scan, flash with a 2048 window at dh 256 and decode
+   at dh 256 / G 10 on a 2048-slot ring at recurrentgemma-2b's;
+3. checks full-width TinyLlama-1.1B, and recurrentgemma-2b cut to 5
+   layers (one (rglru, rglru, attn) group and the 2-layer tail) with a
+   512-token prompt, in fp32, teacher-forced, on the card (kernels)
+   against the CPU (plain versions);
+4. serves full-width TinyLlama-1.1B and full-width recurrentgemma-2b in
+   bf16 through the port's MESC server (the batch drive of
+   ``repro_torch.launch.serve``), checking the step order against the
+   CPU port, that HI requests run at the step after they arrive, and the
+   kernel launches per decode step / prefill against the layer pattern;
+   for recurrentgemma-2b a run with one resident slot evicts a LO
+   request's cache to the host and restores it, and its tokens must
+   equal an uninterrupted run's; the save and restore of one request's
+   context are timed, and a decode step of each model is profiled;
 5. runs the preemptible GEMM (``repro_torch.launch.preemptible_gemm``);
-6. times each kernel at its main-path shapes against its plain version,
-   one PyTorch library call and its bound on the card.
+6. times each kernel at its main path's shapes against its plain version,
+   one PyTorch library call (where one computes the same function) and
+   its bound on the card.
 
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.  Everything printed is also written to
@@ -29,6 +38,7 @@ CUDA is absent or the port's sources are not beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -214,7 +224,51 @@ def phase_kernels(dev):
                         flash_attention_tpu(q, k, v, causal=causal,
                                             block_q=bq, block_kv=bkv),
                         ref.flash_attention_ref(q, k, v, causal=causal), 5e-5)
+    phase_hybrid_kernels(dev, gen)
     torch.cuda.synchronize()
+
+
+def phase_hybrid_kernels(dev, gen):
+    """The hybrid family's kernels at its shapes: the RG-LRU scan, flash
+    with a window at dh 256, decode at dh 256 / G 10 on a window ring."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_tpu
+    from repro_torch.kernels.flash_attention import flash_attention_tpu
+    from repro_torch.kernels.rglru_scan import rglru_scan_tpu
+    # RG-LRU: the test_rglru_kernel_sweep shapes and the 512-token prefill
+    # of recurrentgemma-2b.  The kernel rounds a*h and +b as the plain
+    # version does (no FMA), so the atol 1e-5 of the sweep holds with room.
+    for (B, S, D) in [(2, 128, 256), (1, 64, 512), (1, 512, 2560)]:
+        a = torch.rand((B, S, D), generator=gen, device=dev) * 0.599 + 0.4
+        b, h0 = randn((B, S, D), gen), randn((B, D), gen)
+        check_close(f"rglru_scan B{B} S{S} D{D}", rglru_scan_tpu(a, b, h0),
+                    ref.rglru_scan_ref(a, b, h0), 1e-5)
+    # local attention of the hybrid's prefill at a length where the window
+    # really cuts the band: Hq 10 / Hkv 1, dh 256, S 2560, window 2048
+    for dt in (torch.float32, torch.bfloat16):
+        q = randn((1, 2560, 10, 256), gen, dt).transpose(1, 2)
+        k = randn((1, 2560, 1, 256), gen, dt).transpose(1, 2)
+        v = randn((1, 2560, 1, 256), gen, dt).transpose(1, 2)
+        check_close(f"flash window 2048 B1 Hq10 Hkv1 dh256 S2560 {dt}",
+                    flash_attention_tpu(q, k, v, window=2048),
+                    ref.flash_attention_ref(q, k, v, window=2048),
+                    ATTN_TOL[dt])
+        check_close(f"flash causal B1 Hq10 Hkv1 dh256 S512 {dt}",
+                    flash_attention_tpu(q[:, :, :512], k[:, :, :512],
+                                        v[:, :, :512]),
+                    ref.flash_attention_ref(q[:, :, :512], k[:, :, :512],
+                                            v[:, :, :512]), ATTN_TOL[dt])
+    # windowed decode: a 2048-slot ring (model layout view), G 10, dh 256,
+    # part full (pos_eff < W - 1) and full (pos_eff = W - 1)
+    for dt in (torch.float32, torch.bfloat16):
+        q = randn((1, 10, 256), gen, dt)
+        kc = randn((1, 2048, 1, 256), gen, dt).transpose(1, 2)
+        vc = randn((1, 2048, 1, 256), gen, dt).transpose(1, 2)
+        for pos in (0, 535, 2047):
+            check_close(f"decode B1 Hq10 Hkv1 dh256 ring 2048 pos_eff {pos} "
+                        f"{dt}", decode_attention_tpu(q, kc, vc, pos),
+                        ref.decode_attention_ref(q, kc, vc, pos),
+                        ATTN_TOL[dt])
 
 
 # ---------------------------------------------------------------------------
@@ -222,28 +276,51 @@ def phase_kernels(dev):
 # ---------------------------------------------------------------------------
 
 # fp32 on both sides; the card sums in other orders (cuBLAS, the kernels'
-# online softmax) than the CPU, through 22 layers; logits are of size ~1
+# online softmax) than the CPU, through 22 layers (tinyllama) or 5
+# (recurrentgemma, 512 tokens); logits are of size ~1
 LOGIT_TOL = 1e-3
 
 
-def phase_model(dev):
-    from repro_torch.configs import get_config
+def _leaves(tree, prefix=""):
+    """(name, tensor) for every tensor of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        elif isinstance(v, torch.Tensor):
+            yield prefix + k, v
+
+
+def phase_model(dev, cfg, prompt_len, max_len=None):
+    """``cfg`` at full width in fp32, card (kernels) against CPU (plain
+    versions), teacher-forced: prefill, then 6 decode steps fed the CPU's
+    greedy tokens.  Returns the largest logit error."""
+    from repro_torch.configs.base import _pattern_for
+    from repro_torch.kernels import _build
     from repro_torch.models import lm
     from repro_torch.models.common import CPU_RC
-    log("phase 3: full-width tinyllama-1.1b fp32, card (kernels) vs CPU "
-        "(plain versions), teacher-forced")
-    cfg = get_config("tinyllama-1.1b")
+    log(f"phase 3: full-width {cfg.name} ({cfg.n_layers} layers) fp32, card "
+        f"(kernels) vs CPU (plain versions), {prompt_len}-token prompt, "
+        "teacher-forced")
     gen = torch.Generator(device=dev).manual_seed(0)
     p_dev = lm.init_params(cfg, gen, CPU_RC, device=dev)
     p_cpu = _tree_to(p_dev, "cpu")
-    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (1, 8),
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (1, prompt_len),
                                                dtype=np.int32)
     batch = {"tokens": torch.from_numpy(prompt)}
-    lc, cc = lm.prefill(cfg, p_cpu, batch, CPU_RC, max_len=32)
-    ld, cd = lm.prefill(cfg, p_dev, batch, CPU_RC, max_len=32)
+    lc, cc = lm.prefill(cfg, p_cpu, batch, CPU_RC, max_len=max_len)
+    _build.reset_launches()
+    ld, cd = lm.prefill(cfg, p_dev, batch, CPU_RC, max_len=max_len)
+    torch.cuda.synchronize()
+    pattern = _pattern_for(cfg)
+    assert _build.LAUNCHES["flash_attention"] == pattern.count("attn") and \
+        _build.LAUNCHES["rglru_scan"] == pattern.count("rglru"), \
+        _build.LAUNCHES
     assert ld.shape == (1, cfg.vocab)
     errs = [check_close("prefill logits", ld.cpu(), lc, LOGIT_TOL)]
-    check_close("prefill cache k", cd["ck"].cpu(), cc["ck"], LOGIT_TOL)
+    cpu_cache = dict(_leaves(cc))
+    for name, t in _leaves(cd):
+        check_close(f"prefill cache {name}", t.cpu(), cpu_cache[name],
+                    LOGIT_TOL)
     tok = int(torch.argmax(lc[0]))
     for step in range(6):
         lc, cc = lm.decode_step(cfg, p_cpu, torch.tensor([tok]), cc, CPU_RC)
@@ -251,9 +328,9 @@ def phase_model(dev):
         errs.append(check_close(f"decode step {step} logits", ld.cpu(), lc,
                                 LOGIT_TOL))
         tok = int(torch.argmax(lc[0]))
-    RECORD["model_fp32_max_logit_err"] = max(errs)
     del p_dev, cd
     torch.cuda.empty_cache()
+    return max(errs)
 
 
 def _tree_to(tree, device):
@@ -277,22 +354,28 @@ def _ran(order):
     return len(rids), len(set(rids))
 
 
-def phase_serving(dev):
+def phase_serving(dev, arch, runs):
+    """Serve full-width ``arch`` in bf16 through the port's MESC server,
+    one batch-drive run per (policy, lanes, prompt, max_len, slots) in
+    ``runs``; check each against the CPU port's step order and the
+    kernel launches against the layer pattern.  Returns (results by run
+    tag, cfg, params, rc)."""
+    from repro_torch.configs.base import _pattern_for
     from repro_torch.core.scheduler import Policy
     from repro_torch.core.task import Crit
     from repro_torch.kernels import _build
     from repro_torch.launch import serve
-    log("phase 4: MESC serving of full-width tinyllama-1.1b, bf16")
-    cfg, params, rc = serve.load_model("tinyllama-1.1b", dev)
-    scfg, sparams, src = serve.load_model("tinyllama-1.1b-smoke", "cpu")
-    L = cfg.n_layers
-    runs = [("mesc", 1, 8, 64), ("np", 1, 8, 64), ("mesc", 2, 8, 64),
-            ("np", 2, 8, 64), ("mesc", 1, 512, 1024)]
+    log(f"phase 4: MESC serving of full-width {arch}, bf16")
+    cfg, params, rc = serve.load_model(arch, dev)
+    scfg, sparams, src = serve.load_model(arch + "-smoke", "cpu")
+    pattern = _pattern_for(cfg)
+    n_attn, n_rec = pattern.count("attn"), pattern.count("rglru")
     out = {}
-    for name, lanes, plen, max_len in runs:
+    for name, lanes, plen, max_len, slots in runs:
         policy = Policy.mesc() if name == "mesc" else Policy.non_preemptive()
-        tag = f"{name} lanes={lanes} prompt={plen} max_len={max_len}"
-        kw = dict(lanes=lanes, max_len=max_len)
+        tag = (f"{name} lanes={lanes} prompt={plen} max_len={max_len}"
+               f" slots={slots}")
+        kw = dict(lanes=lanes, max_len=max_len, resident_slots=slots)
         reqs = serve.make_requests(cfg, np.random.default_rng(0),
                                    prompt_len=plen)
         order = []
@@ -309,8 +392,10 @@ def phase_serving(dev):
                   rc=src, order=cpu_order, **kw)
         assert order == cpu_order, f"{tag}: step order differs from the CPU"
         steps, prefills = _ran(order)
-        assert launches["decode_attention"] == L * steps, (tag, launches)
-        assert launches["flash_attention"] == L * prefills, (tag, launches)
+        assert launches["decode_attention"] == n_attn * steps, (tag, launches)
+        assert launches["flash_attention"] == n_attn * prefills, \
+            (tag, launches)
+        assert launches["rglru_scan"] == n_rec * prefills, (tag, launches)
         his = {r.rid for r in reqs if r.crit == Crit.HI}
         first = order[order.index("hi") + 1]
         first = set(first if isinstance(first, list) else [first])
@@ -320,19 +405,83 @@ def phase_serving(dev):
         for r in got.values():
             assert r.done and len(r.generated) == r.max_new_tokens
             assert all(0 <= t < cfg.vocab for t in r.generated)
+        saves = sum(r.saves for r in got.values())
         log(f" {tag}: {steps} decode steps, {prefills} prefills, "
-            f"{wall:.2f} s; launches {launches}; first step after HI "
-            f"arrival ran {sorted(first)}")
+            f"{saves} saves, {wall:.2f} s; launches {launches}; first step "
+            f"after HI arrival ran {sorted(first)}")
         summary = serve.summarize(name, got)
         out[tag] = {"steps": steps, "prefills": prefills, "wall_s": wall,
-                    "launches": launches,
-                    "ttft_latency_s": summary}
+                    "saves": saves, "launches": launches,
+                    "ttft_latency_s": summary,
+                    "tokens": {r.rid: list(r.generated)
+                               for r in got.values()}}
+    return out, cfg, params, rc
+
+
+def context_move_ms(cfg, params, rc, prompt_len=512, reps=5):
+    """Measured save (card -> host) and restore (host -> card) of one
+    request's whole decode cache after a ``prompt_len`` prefill, the
+    copies ``MESCServer._evict`` / ``_restore`` make; median of ``reps``."""
+    from repro_torch.core.serving import _move_cache
+    from repro_torch.models import lm
+    dev = params["embed"].device
+    _, cache = lm.prefill(cfg, params, {"tokens": torch.zeros(
+        (1, prompt_len), dtype=torch.long)}, rc, max_len=1024)
+    nbytes = sum(t.numel() * t.element_size() for _, t in _leaves(cache))
+    saves, restores = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = _move_cache(cache, "cpu")
+        t1 = time.perf_counter()
+        back = _move_cache(host, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        assert all(t.device.type == "cpu" for _, t in _leaves(host))
+        assert all(t.device == dev for _, t in _leaves(back))
+        saves.append((t1 - t0) * 1e3)
+        restores.append((t2 - t1) * 1e3)
+    out = {"bytes": nbytes, "save_ms": statistics.median(saves),
+           "restore_ms": statistics.median(restores)}
+    log(f"  context of one request ({nbytes / 2**20:.2f} MiB after a "
+        f"{prompt_len}-token prefill): save {out['save_ms']:.3f} ms, "
+        f"restore {out['restore_ms']:.3f} ms")
+    return out
+
+
+def phase_dense_serving(dev):
+    runs = [("mesc", 1, 8, 64, 2), ("np", 1, 8, 64, 2), ("mesc", 2, 8, 64, 2),
+            ("np", 2, 8, 64, 2), ("mesc", 1, 512, 1024, 2)]
+    out, cfg, params, rc = phase_serving(dev, "tinyllama-1.1b", runs)
     RECORD["serving"] = out
     RECORD["decode_profile"] = profile_decode(cfg, params, rc)
-    last_launches = out["mesc lanes=1 prompt=512 max_len=1024"]["launches"]
     del params
     torch.cuda.empty_cache()
-    return last_launches
+    return out["mesc lanes=1 prompt=512 max_len=1024 slots=2"]["launches"]
+
+
+def phase_hybrid_serving(dev):
+    """recurrentgemma-2b: MESC and non-preemptive on one lane, one MESC
+    run with 512-token prompts, and one MESC run with a single resident
+    slot, so that a HI arrival evicts the running LO request's cache to
+    the host; its tokens must equal the non-preemptive run's, in which
+    no request is ever interrupted."""
+    runs = [("mesc", 1, 8, 64, 2), ("np", 1, 8, 64, 2),
+            ("mesc", 1, 512, 1024, 2), ("mesc", 1, 8, 64, 1)]
+    out, cfg, params, rc = phase_serving(dev, "recurrentgemma-2b", runs)
+    evicting = out["mesc lanes=1 prompt=8 max_len=64 slots=1"]
+    uninterrupted = out["np lanes=1 prompt=8 max_len=64 slots=2"]
+    assert evicting["saves"] >= 1, evicting
+    assert evicting["tokens"] == uninterrupted["tokens"], \
+        "tokens after a save and restore differ from an uninterrupted run"
+    log(f"  slots=1: {evicting['saves']} saves; every request's tokens "
+        "equal the non-preemptive run's")
+    RECORD["hybrid_serving"] = out
+    RECORD["hybrid_context_move"] = context_move_ms(cfg, params, rc)
+    RECORD["hybrid_decode_profile"] = profile_decode(cfg, params, rc)
+    del params
+    torch.cuda.empty_cache()
+    return out["mesc lanes=1 prompt=512 max_len=1024 slots=2"]["launches"]
 
 
 def _device_us(evt) -> float:
@@ -424,9 +573,13 @@ def _bound(flops, nbytes, peak):
 
 
 def phase_timing(dev, launches, card, power):
+    """``launches`` maps each row to the count of its path's run: the
+    tinyllama and recurrentgemma 512-token MESC runs, the preemptible
+    GEMM."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_tpu
     from repro_torch.kernels.flash_attention import flash_attention_tpu
+    from repro_torch.kernels.rglru_scan import rglru_scan_tpu
     from repro_torch.kernels.systolic_gemm import gemm_partial, systolic_gemm
     F = torch.nn.functional
     log("phase 6: kernel times at the main path's shapes (device time: "
@@ -454,6 +607,45 @@ def phase_timing(dev, launches, card, power):
             f"call {r['call_ms']:.4f} ms, bound "
             f"{bound_ms:.5f} ms ({bound_by}), max|err| {err:.2e}")
 
+    def decode_row(name, Hq, Hkv, dh, S, pos, note):
+        """One layer's decode attention; the library call gets the KV
+        heads repeated to Hq beforehand."""
+        q = randn((1, Hq, dh), gen, bf)
+        kc = randn((1, S, Hkv, dh), gen, bf).transpose(1, 2)
+        vc = randn((1, S, Hkv, dh), gen, bf).transpose(1, 2)
+        live = pos + 1
+        kr = kc[:, :, :live].repeat_interleave(Hq // Hkv, dim=1)
+        vr = vc[:, :, :live].repeat_interleave(Hq // Hkv, dim=1)
+        row(name, "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:59",
+            lambda: decode_attention_tpu(q, kc, vc, pos),
+            lambda: ref.decode_attention_ref(q, kc, vc, pos),
+            lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr),
+            4 * Hq * live * dh, 2 * (2 * Hkv * live * dh + 2 * Hq * dh),
+            PEAK_BF16, ATTN_TOL[bf],
+            f"q 1x{Hq}x{dh}, cache 1x{Hkv}x{S}x{dh} bf16, pos {pos}{note}")
+
+    def flash_row(name, Hq, Hkv, dh, S, window, note):
+        """One layer of the 512-token prefill; the library call gets the
+        KV heads repeated to Hq beforehand.  At S <= window the band is
+        the causal triangle, so SDPA's causal call is the same function."""
+        assert S <= window or window == 0
+        q = randn((1, S, Hq, dh), gen, bf).transpose(1, 2)
+        k = randn((1, S, Hkv, dh), gen, bf).transpose(1, 2)
+        v = randn((1, S, Hkv, dh), gen, bf).transpose(1, 2)
+        pairs = S * (S + 1) // 2
+        kr = k.repeat_interleave(Hq // Hkv, dim=1)
+        vr = v.repeat_interleave(Hq // Hkv, dim=1)
+        row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:64",
+            lambda: flash_attention_tpu(q, k, v, window=window),
+            lambda: ref.flash_attention_ref(q, k, v, window=window),
+            lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True),
+            4 * Hq * pairs * dh,
+            2 * (2 * Hq * S * dh + 2 * Hkv * S * dh), PEAK_BF16,
+            ATTN_TOL[bf], f"q 1x{Hq}x{S}x{dh}, kv 1x{Hkv}x{S}x{dh} bf16, "
+            f"causal{note}")
+
     # gemm_partial: the preemptible GEMM's resume call, K blocks [3, 8) of
     # 1024^3 fp32 with bk 128 (K range 640)
     M = K = N = 1024
@@ -475,38 +667,28 @@ def phase_timing(dev, launches, card, power):
         lambda: ref.gemm_ref(Ah, Bh), lambda: torch.matmul(Ah, Bh),
         2 * 128 ** 3, 4 * 3 * 128 * 128, PEAK_FP32, 1e-3,
         "128x128x128 fp32")
-    # decode: one layer of the 512-token serving run at its last position
     bf = torch.bfloat16
-    pos, S = 535, 1024
-    q = randn((1, 32, 64), gen, bf)
-    kc = randn((1, S, 4, 64), gen, bf).transpose(1, 2)
-    vc = randn((1, S, 4, 64), gen, bf).transpose(1, 2)
-    live = pos + 1
-    # the library call gets the KV heads repeated to Hq beforehand
-    kr = kc[:, :, :live].repeat_interleave(8, dim=1)
-    vr = vc[:, :, :live].repeat_interleave(8, dim=1)
-    row("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "src/repro/kernels/decode_attention.py:59",
-        lambda: decode_attention_tpu(q, kc, vc, pos),
-        lambda: ref.decode_attention_ref(q, kc, vc, pos),
-        lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr),
-        4 * 32 * live * 64, 2 * (2 * 4 * live * 64 + 2 * 32 * 64),
-        PEAK_BF16, ATTN_TOL[bf],
-        f"q 1x32x64, cache 1x4x{S}x64 bf16, pos {pos}")
-    # prefill: one layer of the 512-token prompt
-    S = 512
-    q = randn((1, S, 32, 64), gen, bf).transpose(1, 2)
-    k = randn((1, S, 4, 64), gen, bf).transpose(1, 2)
-    v = randn((1, S, 4, 64), gen, bf).transpose(1, 2)
-    pairs = S * (S + 1) // 2
-    kr, vr = k.repeat_interleave(8, dim=1), v.repeat_interleave(8, dim=1)
-    row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention.py:64",
-        lambda: flash_attention_tpu(q, k, v),
-        lambda: ref.flash_attention_ref(q, k, v),
-        lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True),
-        4 * 32 * pairs * 64, 2 * (2 * 32 * S * 64 + 2 * 4 * S * 64),
-        PEAK_BF16, ATTN_TOL[bf], f"q 1x32x{S}x64, kv 1x4x{S}x64 bf16, causal")
+    # tinyllama-1.1b: one layer of the 512-token serving run (decode at its
+    # last position of a 1024-slot cache; prefill of the prompt)
+    decode_row("decode_attention", 32, 4, 64, 1024, 535, "")
+    flash_row("flash_attention", 32, 4, 64, 512, 0, "")
+    # recurrentgemma-2b: the same run's shapes on the hybrid's attention
+    # layers (2048-slot window ring, ring position 535; 512-token prefill
+    # inside the 2048 window) and its RG-LRU prefill scan
+    decode_row("decode_attention@recurrentgemma-2b", 10, 1, 256, 2048, 535,
+               ", window ring")
+    flash_row("flash_attention@recurrentgemma-2b", 10, 1, 256, 512, 2048,
+              ", window 2048")
+    Bs, S, D = 1, 512, 2560
+    a = torch.rand((Bs, S, D), generator=gen, device=dev) * 0.599 + 0.4
+    b, h0 = randn((Bs, S, D), gen), randn((Bs, D), gen)
+    # no single PyTorch call computes a linear recurrence: library_ms null
+    row("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "src/repro/kernels/rglru_scan.py:42",
+        lambda: rglru_scan_tpu(a, b, h0),
+        lambda: ref.rglru_scan_ref(a, b, h0), None,
+        2 * Bs * S * D, 4 * (3 * Bs * S * D + Bs * D), PEAK_FP32, 1e-5,
+        f"a, b {Bs}x{S}x{D} fp32, h0 {Bs}x{D}")
 
     # the same GEMM kernel at TinyLlama's FFN width (not a main-path call)
     a = randn((512, 2048), gen, bf)
@@ -542,19 +724,34 @@ def main() -> int:
     _build.lib()
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     for ln in _build.ptxas_report().splitlines():
-        if "registers" in ln or "spill" in ln:
+        if "entry function" in ln or "registers" in ln or "spill" in ln:
             log("  ptxas: " + ln.strip())
     RECORD.update(card=card, power_limit=power, torch=torch.__version__,
                   cuda=torch.version.cuda,
                   build_s=time.perf_counter() - t0)
 
     phase_kernels(dev)
-    phase_model(dev)
-    serve_launches = phase_serving(dev)
+    from repro_torch.configs import get_config
+    RECORD["model_fp32_max_logit_err"] = phase_model(
+        dev, get_config("tinyllama-1.1b"), 8, max_len=32)
+    # one (rglru, rglru, attn) group and the 2-layer tail at full width
+    hybrid5 = dataclasses.replace(get_config("recurrentgemma-2b"),
+                                  n_layers=5)
+    RECORD["hybrid_fp32_max_logit_err"] = phase_model(dev, hybrid5, 512)
+    dense_launches = phase_dense_serving(dev)
+    hybrid_launches = phase_hybrid_serving(dev)
     gemm_launches = phase_gemm(dev)
-    launches = {**serve_launches,
-                "gemm_partial": gemm_launches["gemm_partial"],
-                "systolic_gemm": gemm_launches["systolic_gemm"]}
+    launches = {
+        "decode_attention": dense_launches["decode_attention"],
+        "flash_attention": dense_launches["flash_attention"],
+        "decode_attention@recurrentgemma-2b":
+            hybrid_launches["decode_attention"],
+        "flash_attention@recurrentgemma-2b":
+            hybrid_launches["flash_attention"],
+        "rglru_scan": hybrid_launches["rglru_scan"],
+        "gemm_partial": gemm_launches["gemm_partial"],
+        "systolic_gemm": gemm_launches["systolic_gemm"]}
+    assert all(n > 0 for n in launches.values()), launches
     rows = phase_timing(dev, launches, card, power)
     RECORD["wall_s"] = time.perf_counter() - t_start
 

@@ -99,7 +99,11 @@ class KVSlotArena:
 
 
 def _move_cache(cache: dict, device) -> dict:
-    return {k: (v.to(device) if isinstance(v, torch.Tensor) else v)
+    """Every tensor of a (nested) cache dict on ``device``, as the
+    reference's ``jax.device_get`` / ``device_put`` move the whole pytree
+    (the hybrid cache nests its tail layers' states under ``"tail"``)."""
+    return {k: (_move_cache(v, device) if isinstance(v, dict)
+                else v.to(device) if isinstance(v, torch.Tensor) else v)
             for k, v in cache.items()}
 
 

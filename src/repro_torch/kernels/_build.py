@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches of each kernel wrapper; a wrapper adds one where it launches
 # its kernel and nowhere else (chip_smoke.py reads these)
 LAUNCHES: Dict[str, int] = {"gemm_partial": 0, "systolic_gemm": 0,
-                            "decode_attention": 0, "flash_attention": 0}
+                            "decode_attention": 0, "flash_attention": 0,
+                            "rglru_scan": 0}
 
 # C entry points: name -> argtypes (c_void_p for every pointer and the
 # stream, c_int / c_longlong for sizes and strides)
@@ -48,11 +49,13 @@ _SIGNATURES = {
     "repro_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
                                ctypes.c_float, _P],
-    # dtype, q, k, v, out, B, Hq, Hkv, S, Skv, dh, causal,
+    # dtype, q, k, v, out, B, Hq, Hkv, S, Skv, dh, causal, window,
     # q/k/v/o strides (b, h, s) each, scale, stream
     "repro_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                              ctypes.c_float, _P],
+                              _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                              _L, ctypes.c_float, _P],
+    # a, b, h0, out, B, S, D, stream
+    "repro_rglru_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

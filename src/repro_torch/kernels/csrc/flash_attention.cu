@@ -1,7 +1,9 @@
-// Causal (or full) flash attention for Hopper (sm_90a), the prefill path.
+// Causal (or full) flash attention for Hopper (sm_90a), the prefill path,
+// with an optional local window (the hybrid family's banded attention).
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_tpu
-// (_flash_kernel).
+// (_flash_kernel), and with a window the banded attention of
+// src/repro/models/attention.py::local_attention.
 //
 // What bounds it on the H100: a causal pass over S tokens does ~2*S^2*dh
 // FLOP per query head on 4*S*dh values, so at the 512-token prompt it is
@@ -15,13 +17,19 @@
 // KV grid axis; here the KV loop runs inside the block).  It walks KV tiles
 // of BKV keys staged in shared memory, only up to its diagonal: KV tiles the
 // reference skips as fully masked (ki*bkv >= (qi+1)*bq) are never loaded.
-// Per tile it applies the reference's online softmax in fp32: causal
-// mask, m_new, p = exp(s - m_new) * (s > NEG_INF*0.5), corr = exp(m - m_new),
+// With a window W > 0 a key k is live for query q when q - W < k <= q, and
+// KV tiles wholly below the band of the block's first row are skipped the
+// same way, so a banded pass costs O(S * W).  Per tile it applies the
+// reference's online softmax in fp32: mask, m_new,
+// p = exp(s - m_new) * (s > NEG_INF*0.5), corr = exp(m - m_new),
 // p rounded to v's dtype before the PV product.  GQA maps query head h to
 // KV head h / G.  Every tensor goes in through its strides, so the model's
 // (B,S,H,dh) q/k/v are passed as views; the ragged S edge (an 8-token
-// prompt fits no tile) is masked.  Tensor-core (wgmma) QK^T and PV with
-// TMA-fed tiles are later work.
+// prompt fits no tile) is masked.  The tiles live in dynamic shared memory:
+// at dh 256 they take 65 KB, over the 48 KB a static array may hold.  At
+// dh 256 acc[256] does not fit in registers and spills to local memory
+// (ptxas reports it); tensor-core (wgmma) QK^T and PV with TMA-fed tiles,
+// and dh split across threads, are later work.
 #include "common.cuh"
 
 using namespace repro;
@@ -29,23 +37,29 @@ using namespace repro;
 namespace {
 
 template <int DH> struct Tile {
-  // 64 query rows and 32 keys per tile; dh 128 halves both to stay under
-  // the 48 KB of static shared memory
+  // 64 query rows and 32 keys per tile; dh 128 and 256 halve both, so a
+  // block's tiles stay at 33 KB (dh 128) and 65 KB (dh 256)
   static constexpr int BQ = DH >= 128 ? 32 : 64;
   static constexpr int BKV = DH >= 128 ? 16 : 32;
+  // q padded by one column: each thread reads its own row; k and v rows
+  // are read by every thread at once
+  static constexpr size_t SMEM =
+      sizeof(float) * ((size_t)BQ * (DH + 1) + 2 * (size_t)BKV * DH);
 };
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(Tile<DH>::BQ)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
-             int S, int Skv, int causal, i64 sqb, i64 sqh, i64 sqs, i64 skb,
-             i64 skh, i64 sks, i64 svb, i64 svh, i64 svs, i64 sob, i64 soh,
-             i64 sos, float scale) {
+             int S, int Skv, int causal, int window, i64 sqb, i64 sqh,
+             i64 sqs, i64 skb, i64 skh, i64 sks, i64 svb, i64 svh, i64 svs,
+             i64 sob, i64 soh, i64 sos, float scale) {
   constexpr int BQ = Tile<DH>::BQ, BKV = Tile<DH>::BKV;
-  __shared__ float qs[BQ][DH + 1];  // padded: each thread reads its own row
-  __shared__ float ks[BKV][DH];     // every thread reads the same row
-  __shared__ float vs[BKV][DH];
+  extern __shared__ float smem[];
+  float(*qs)[DH + 1] = reinterpret_cast<float(*)[DH + 1]>(smem);
+  float(*ks)[DH] = reinterpret_cast<float(*)[DH]>(smem + BQ * (DH + 1));
+  float(*vs)[DH] = reinterpret_cast<float(*)[DH]>(smem + BQ * (DH + 1) +
+                                                  BKV * DH);
   const int t = threadIdx.x;
   const int bh = blockIdx.x;
   const int b = bh / Hq, hq = bh % Hq, hk = hq / (Hq / Hkv);
@@ -66,9 +80,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < DH; ++d) acc[d] = 0.f;
 
   // live keys: below (block's last row + 1) when causal, the reference's
-  // block-skipping rule with the block's own edge
+  // block-skipping rule with the block's own edge; with a window, from the
+  // first tile that reaches the band of the block's first row
   const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += BKV) {
     __syncthreads();
     for (int i = t; i < BKV * DH; i += BQ) {
       const int r = i / DH, d = i % DH, kp = k0 + r;
@@ -85,7 +101,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int d = 0; d < DH; ++d) dot = fmaf(qs[t][d], ks[j][d], dot);
       const int kp = k0 + j;
-      const bool live = kp < Skv && (!causal || kp <= qpos);
+      const bool live = kp < Skv && (!causal || kp <= qpos) &&
+                        (window <= 0 || kp > qpos - window);
       s[j] = live ? dot * scale : NEG_INF;
       m_new = fmaxf(m_new, s[j]);
     }
@@ -118,46 +135,56 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int S, int Skv, int causal, const i64* st,
-           float scale, cudaStream_t s) {
+           int Hq, int Hkv, int S, int Skv, int causal, int window,
+           const i64* st, float scale, cudaStream_t s) {
   constexpr int BQ = Tile<DH>::BQ;
+  constexpr size_t smem = Tile<DH>::SMEM;
+  cudaError_t e = allow_smem(flash_kernel<T, DH>, smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid(B * Hq, (S + BQ - 1) / BQ);
-  flash_kernel<T, DH><<<grid, BQ, 0, s>>>(
+  flash_kernel<T, DH><<<grid, BQ, smem, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hkv, S, Skv, causal,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], scale);
+      window, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      st[9], st[10], st[11], scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int dh, const void* q, const void* k, const void* v, void* o,
-             int B, int Hq, int Hkv, int S, int Skv, int causal,
+             int B, int Hq, int Hkv, int S, int Skv, int causal, int window,
              const i64* st, float scale, cudaStream_t s) {
+#define REPRO_FLASH_CASE(DH)                                                 \
+  case DH:                                                                  \
+    return launch<T, DH>(q, k, v, o, B, Hq, Hkv, S, Skv, causal, window, st, \
+                         scale, s);
   switch (dh) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Hq, Hkv, S, Skv, causal, st, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, Hq, Hkv, S, Skv, causal, st, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, Hq, Hkv, S, Skv, causal, st, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, Hq, Hkv, S, Skv, causal, st, scale, s);
+    REPRO_FLASH_CASE(16)
+    REPRO_FLASH_CASE(32)
+    REPRO_FLASH_CASE(64)
+    REPRO_FLASH_CASE(128)
+    REPRO_FLASH_CASE(256)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef REPRO_FLASH_CASE
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; dh in {16, 32, 64, 128}.  Strides are
-// in elements, (batch, head, sequence) for q, k, v and o; the last
-// dimension is contiguous.
+// dtype: 0 = float32, 1 = bfloat16; dh in {16, 32, 64, 128, 256}; window 0
+// means none, > 0 needs causal.  Strides are in elements, (batch, head,
+// sequence) for q, k, v and o; the last dimension is contiguous.
 extern "C" int repro_flash_attention(
     int dtype, const void* q, const void* k, const void* v, void* o, int B,
-    int Hq, int Hkv, int S, int Skv, int dh, int causal, i64 sqb, i64 sqh,
-    i64 sqs, i64 skb, i64 skh, i64 sks, i64 svb, i64 svh, i64 svs, i64 sob,
-    i64 soh, i64 sos, float scale, void* stream) {
+    int Hq, int Hkv, int S, int Skv, int dh, int causal, int window, i64 sqb,
+    i64 sqh, i64 sqs, i64 skb, i64 skh, i64 sks, i64 svb, i64 svh, i64 svs,
+    i64 sob, i64 soh, i64 sos, float scale, void* stream) {
   const i64 st[12] = {sqb, sqh, sqs, skb, skh, sks,
                       svb, svh, svs, sob, soh, sos};
   cudaStream_t s = (cudaStream_t)stream;
+  if (window > 0 && !causal) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(dh, q, k, v, o, B, Hq, Hkv, S, Skv, causal, st,
-                           scale, s);
+    return dispatch<float>(dh, q, k, v, o, B, Hq, Hkv, S, Skv, causal, window,
+                           st, scale, s);
   return dispatch<__nv_bfloat16>(dh, q, k, v, o, B, Hq, Hkv, S, Skv, causal,
-                                 st, scale, s);
+                                 window, st, scale, s);
 }

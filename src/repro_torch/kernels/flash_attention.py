@@ -1,10 +1,12 @@
 """Causal flash attention (twin of the reference's
-``kernels/flash_attention.py``).
+``kernels/flash_attention.py``), with an optional local window.
 
 On a CUDA tensor this launches ``csrc/flash_attention.cu``, which skips
 fully masked KV tiles rather than masking them and keeps (m, l, acc) on
 chip, so nothing score-sized reaches device memory.  On a CPU tensor it
-runs the plain version in ``kernels/ref.py``.
+runs the plain version in ``kernels/ref.py``.  ``window > 0`` keeps the
+keys k with q - window < k <= q, the banded attention of the reference's
+``models/attention.py::local_attention``.
 
 Layout: q (B,Hq,S,dh), k/v (B,Hkv,S,dh), any strides with a contiguous
 last dimension; GQA maps query head h to KV head h // G.  The output is
@@ -18,22 +20,25 @@ import torch
 from repro_torch.kernels import _build, ref
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)   # instantiated in csrc/flash_attention.cu
+HEAD_DIMS = (16, 32, 64, 128, 256)  # instantiated in csrc/flash_attention.cu
 
 
 def flash_attention_tpu(q, k, v, *, causal: bool = True, block_q: int = 512,
-                        block_kv: int = 512):
+                        block_kv: int = 512, window: int = 0):
     """q (B,Hq,S,dh), k/v (B,Hkv,S,dh) -> (B,Hq,S,dh).
 
     ``block_q``/``block_kv`` keep the reference's divisibility asserts;
     the CUDA kernel tiles on its own and masks the ragged edge.
+    ``window`` 0 means none; a window needs ``causal``.
     """
     B, Hq, S, dh = q.shape
     _, Hkv, Skv, _ = k.shape
     bq, bkv = min(block_q, S), min(block_kv, Skv)
     assert S % bq == 0 and Skv % bkv == 0
+    if window < 0 or (window > 0 and not causal):
+        raise ValueError(f"window={window} needs causal attention and >= 0")
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     if Hq % Hkv != 0:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     if dh not in HEAD_DIMS:
@@ -50,7 +55,7 @@ def flash_attention_tpu(q, k, v, *, causal: bool = True, block_q: int = 512,
                       device=q.device).transpose(1, 2)
     err = _build.lib().repro_flash_attention(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, Hq, Hkv, S, Skv, dh, int(causal),
+        out.data_ptr(), B, Hq, Hkv, S, Skv, dh, int(causal), int(window),
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),

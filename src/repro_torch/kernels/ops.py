@@ -4,15 +4,13 @@ A tensor on the CPU goes to the kernel's plain version (``kernels/ref.py``);
 a CUDA tensor goes to the hand-written kernel, or the call raises.  There
 is no fallback from one to the other.  ``_build.LAUNCHES`` counts the
 kernel launches of each wrapper.
-
-The RG-LRU scan (``rglru`` in the reference) comes with the hybrid
-family; until then only its plain version exists (``ref.rglru_scan_ref``).
 """
 from __future__ import annotations
 
 from repro_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
 from repro_torch.kernels.decode_attention import decode_attention_tpu
 from repro_torch.kernels.flash_attention import flash_attention_tpu
+from repro_torch.kernels.rglru_scan import rglru_scan_tpu
 from repro_torch.kernels.systolic_gemm import gemm_partial, systolic_gemm
 
 
@@ -25,10 +23,15 @@ def gemm_resume(a, b, acc, k_begin, k_end, *, bk=256):
     return gemm_partial(a, b, acc, k_begin, k_end, bk=bk)
 
 
-def flash_attention(q, k, v, *, causal=True, block_q=512, block_kv=512):
+def flash_attention(q, k, v, *, causal=True, block_q=512, block_kv=512,
+                    window=0):
     return flash_attention_tpu(q, k, v, causal=causal, block_q=block_q,
-                               block_kv=block_kv)
+                               block_kv=block_kv, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, block_s=1024):
     return decode_attention_tpu(q, k_cache, v_cache, pos, block_s=block_s)
+
+
+def rglru(a, b, h0, *, block_s=256, block_d=256):
+    return rglru_scan_tpu(a, b, h0, block_s=block_s, block_d=block_d)

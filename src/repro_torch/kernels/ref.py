@@ -24,8 +24,9 @@ def gemm_partial_ref(a, b, acc, k_begin: int, k_end: int, bk: int):
     return acc + a_sl @ b_sl
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True):
-    """q (B,Hq,S,dh), k/v (B,Hkv,Skv,dh)."""
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """q (B,Hq,S,dh), k/v (B,Hkv,Skv,dh); ``window`` > 0 keeps the keys
+    k with q - window < k <= q."""
     B, Hq, S, dh = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -34,6 +35,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (dh ** -0.5)
     if causal:
         mask = torch.ones(S, Skv, dtype=torch.bool, device=q.device).tril()
+        if window > 0:
+            mask = mask.triu(1 - window)
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())

@@ -8,6 +8,7 @@ baseline.  With ``--lanes N`` the requests are partitioned across N
 dispatch lanes sharing one KV-slot arena.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --lanes 2 --device cpu \
       --arch tinyllama-1.1b-smoke
 
@@ -76,12 +77,14 @@ def _drain(srv, order: Optional[list]):
 
 def run(cfg, params, policy, reqs, hi_delay_steps: int = 3,
         lanes: int = 1, heuristic: str = "crit_aware", rc=CPU_RC,
-        max_len: int = 64, order: Optional[List] = None):
+        max_len: int = 64, order: Optional[List] = None,
+        resident_slots: int = 2):
     """LO requests submitted first; HI requests arrive mid-flight.
 
     ``order``, when given, receives the return of every ``step()`` call
     (warm-up included) and the marker ``"hi"`` where the HI requests are
-    submitted.
+    submitted.  ``resident_slots`` sizes the device-resident cache pool
+    of one lane (with more lanes, two slots each).
     """
     if lanes > 1:
         srv = MultiLaneServer(cfg, params, policy=policy, rc=rc,
@@ -89,7 +92,7 @@ def run(cfg, params, policy, reqs, hi_delay_steps: int = 3,
                               heuristic=heuristic)
     else:
         srv = MESCServer(cfg, params, policy=policy, rc=rc,
-                         max_len=max_len)
+                         max_len=max_len, resident_slots=resident_slots)
     # warm-up request outside the measured window
     warm = Request(rid=-1, priority=99,
                    prompt=np.zeros(len(reqs[0].prompt), np.int32),

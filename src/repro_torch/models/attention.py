@@ -1,11 +1,11 @@
-"""GQA attention for the dense family (twin of the GQA subset of the
-reference's ``models/attention.py``).
+"""GQA and local attention for the dense and hybrid families (twin of
+the GQA and local subset of the reference's ``models/attention.py``).
 
 In the reference these are jnp functions and the Pallas kernels are
 drop-in replacements nobody calls.  Here the swap is made: on a CUDA
-tensor ``flash_attention`` runs the causal flash kernel and
-``decode_attention`` the flash-decoding kernel; on a CPU tensor both run
-the kernels' plain versions.
+tensor ``flash_attention`` and ``local_attention`` run the flash kernel
+(the latter with a window) and ``decode_attention`` the flash-decoding
+kernel; on a CPU tensor they run the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -34,6 +34,25 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal,
                             block_q=block_q, block_kv=block_kv)
+    return o.transpose(1, 2)
+
+
+def local_attention(q, k, v, *, window: int, q_offset=0, block_q: int = 512):
+    """Banded causal attention: each query attends the previous ``window``
+    keys (inclusive of self).  q (B,Sq,Hq,Dh), k/v (B,Skv,Hkv,Dh) with
+    Skv == Sq -> (B,Sq,Hq,Dh).
+
+    The hybrid family's prefill never passes ``q_offset``; the kernel has
+    none, so it raises until a caller needs it.
+    """
+    if q_offset != 0:
+        raise NotImplementedError("q_offset is not ported (no caller)")
+    Sq = q.shape[1]
+    bq = min(block_q, Sq)
+    assert Sq % bq == 0
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True, block_q=block_q,
+                            block_kv=block_q, window=window)
     return o.transpose(1, 2)
 
 

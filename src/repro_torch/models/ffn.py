@@ -20,6 +20,11 @@ def swiglu(x, p):
     return _glu(x, p, F.silu)
 
 
+def gelu(x):
+    """``jax.nn.gelu``, which defaults to the tanh form."""
+    return F.gelu(x, approximate="tanh")
+
+
 def geglu(x, p):
-    """Gated-GeLU MLP; ``jax.nn.gelu`` defaults to the tanh form."""
-    return _glu(x, p, lambda t: F.gelu(t, approximate="tanh"))
+    """Gated-GeLU MLP (RecurrentGemma/Gemma style)."""
+    return _glu(x, p, gelu)

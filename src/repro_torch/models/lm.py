@@ -1,5 +1,5 @@
-"""Decoder LM, dense GQA family (twin of the dense branch of the
-reference's ``models/lm.py``).
+"""Decoder LM, dense GQA and hybrid (RG-LRU + local attention) families
+(twin of those branches of the reference's ``models/lm.py``).
 
 Entry points are plain functions of (cfg, params, ...): ``init_params``,
 ``params_from_jax``, ``embed_inputs``, ``lm_logits``, ``init_cache``,
@@ -7,17 +7,25 @@ Entry points are plain functions of (cfg, params, ...): ``init_params``,
 reference's pytree layout: layer parameters stacked on a leading layer
 dim, weights in (in, out) layout.  The layer scan becomes a Python loop.
 
-The cache is ``{"ck", "cv": (L,B,S,Hkv,dh), "pos": int}``, the reference's
-layout, with ``pos`` a host int so that neither the kernels (which take
-it by value) nor the serving loop's termination test need a device sync.
-``decode_step`` writes the new position into the cache in place and
-returns the same tensors with ``pos + 1``.
+Caches keep the reference's layout, with ``pos`` a host int so that
+neither the kernels (which take it by value) nor the serving loop's
+termination test need a device sync:
+
+- dense: ``{"ck", "cv": (L,B,S,Hkv,dh), "pos"}``;
+- hybrid: per group of (rglru, rglru, attn) the RG-LRU states
+  ``rh0``/``rh1`` (G,B,d_rnn) fp32 and conv states ``rconv0``/``rconv1``
+  (G,B,conv_width-1,d_rnn), the window ring ``wk``/``wv``
+  (G,B,W,Hkv,dh), and for a tail of RG-LRU layers
+  ``"tail": {"rh", "rconv"}``.
+
+``decode_step`` updates the cache tensors in place and returns a dict
+holding them with ``pos + 1``.
 
 Other families raise ``NotImplementedError`` until they are ported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +33,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.common import (DEFAULT_RC, RuntimeConfig, apply_norm,
                                        dense_init, norm_params)
 from repro_torch.runtime.device import resolve_device
@@ -35,27 +44,33 @@ Params = Dict[str, Any]
 # scale as fp32 (``scale.astype(float32)``), so casting it to a bf16
 # compute dtype would change the result
 _NORM_KEYS = ("ln", "out_norm")
+# leaves the reference creates and reads in fp32 whatever the dtypes
+# (the RG-LRU decay ``lam``, ``recurrent.py:36``)
+_FP32_KEYS = ("lam",)
+FAMILIES = ("dense", "hybrid")
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported "
-                                  "(dense only)")
+                                  f"({', '.join(FAMILIES)} only)")
 
 
-def _place(tree, rc: RuntimeConfig, device, in_norm: bool = False):
+def _place(tree, rc: RuntimeConfig, device, dtype=None):
     """Move a parameter tree to ``device``: norm parameters in the
-    parameter dtype, every weight in the compute dtype.
+    parameter dtype, ``lam`` in fp32, every weight in the compute dtype.
 
     The reference casts each weight with ``.astype(x.dtype)`` where it
     is used; casting once at load gives the same values (the cast is the
-    same rounding) and keeps the bf16 model at ~2.2 GB on the card.
+    same rounding) and keeps the bf16 models at half their fp32 size on
+    the card.
     """
     if isinstance(tree, dict):
-        return {k: _place(v, rc, device, in_norm or k in _NORM_KEYS)
+        return {k: _place(v, rc, device,
+                          torch.float32 if k in _FP32_KEYS
+                          else rc.param_dtype if k in _NORM_KEYS else dtype)
                 for k, v in tree.items()}
-    return tree.to(device=device,
-                   dtype=rc.param_dtype if in_norm else rc.compute_dtype)
+    return tree.to(device=device, dtype=dtype or rc.compute_dtype)
 
 
 def _layer(tree, i: int):
@@ -64,21 +79,36 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _hybrid_group_counts(cfg: ArchConfig) -> Tuple[int, int]:
+    """(n_groups of (rec,rec,attn), n_tail rec layers)."""
+    pat = len(cfg.rglru.block_pattern)  # 3
+    return cfg.n_layers // pat, cfg.n_layers % pat
+
+
 # ===========================================================================
 # Parameters
 # ===========================================================================
 
+def _stacked_norm(cfg, L, dtype, device):
+    return {k: v.expand(L, cfg.d_model).clone()
+            for k, v in norm_params(cfg.norm, cfg.d_model, dtype,
+                                    device).items()}
+
+
+def _out_scale(cfg):
+    return 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
+
+
 def _attn_params(cfg, g, L, dtype, device):
     d, dh, hq, hkv = cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads
     p = {
-        "ln": norm_params(cfg.norm, d, dtype, device),
+        "ln": _stacked_norm(cfg, L, dtype, device),
         "wq": dense_init(g, (L, d, hq * dh), dtype, device),
         "wk": dense_init(g, (L, d, hkv * dh), dtype, device),
         "wv": dense_init(g, (L, d, hkv * dh), dtype, device),
         "wo": dense_init(g, (L, hq * dh, d), dtype, device,
-                         scale=0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)),
+                         scale=_out_scale(cfg)),
     }
-    p["ln"] = {k: v.expand(L, d).clone() for k, v in p["ln"].items()}
     if cfg.qkv_bias:
         p.update(bq=torch.zeros((L, hq * dh), dtype=dtype, device=device),
                  bk=torch.zeros((L, hkv * dh), dtype=dtype, device=device),
@@ -88,15 +118,37 @@ def _attn_params(cfg, g, L, dtype, device):
 
 def _mlp_params(cfg, g, L, dtype, device):
     d, f = cfg.d_model, cfg.d_ff
-    p = {
-        "ln": norm_params(cfg.norm, d, dtype, device),
+    return {
+        "ln": _stacked_norm(cfg, L, dtype, device),
         "w1": dense_init(g, (L, d, f), dtype, device),
         "w3": dense_init(g, (L, d, f), dtype, device),
-        "w2": dense_init(g, (L, f, d), dtype, device,
-                         scale=0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)),
+        "w2": dense_init(g, (L, f, d), dtype, device, scale=_out_scale(cfg)),
     }
-    p["ln"] = {k: v.expand(L, d).clone() for k, v in p["ln"].items()}
-    return p
+
+
+def _rglru_block_params(cfg, g, L, dtype, device):
+    r = cfg.rglru
+    d, dr, H = cfg.d_model, r.d_rnn, cfg.n_heads
+    dh = dr // H
+    lo, hi = 0.65 ** 2, 0.999 ** 2
+    lam = torch.rand((L, dr), generator=g, device=device) * (hi - lo) + lo
+    lam = torch.log(torch.exp(torch.sqrt(lam) * 8.0) - 1.0) / 8.0
+    z = dict(dtype=dtype, device=device)
+    return {
+        "ln": _stacked_norm(cfg, L, dtype, device),
+        "w_y": dense_init(g, (L, d, dr), dtype, device),    # gated branch
+        "w_xb": dense_init(g, (L, d, dr), dtype, device),   # recurrence
+        "conv_w": dense_init(g, (L, r.conv_width, dr), dtype, device,
+                             scale=0.1),
+        "conv_b": torch.zeros((L, dr), **z),
+        "w_a": dense_init(g, (L, H, dh, dh), dtype, device),
+        "b_a": dense_init(g, (L, H, dh), dtype, device),
+        "w_x": dense_init(g, (L, H, dh, dh), dtype, device),
+        "b_x": torch.zeros((L, H, dh), **z),
+        "lam": lam,
+        "w_out": dense_init(g, (L, dr, d), dtype, device,
+                            scale=_out_scale(cfg)),
+    }
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -109,16 +161,30 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     """
     _check_family(cfg)
     device = resolve_device(device)
-    pd = rc.param_dtype
+    g, pd = generator, rc.param_dtype
     d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
     params: Params = {
-        "embed": dense_init(generator, (V, d), pd, device),
+        "embed": dense_init(g, (V, d), pd, device),
         "out_norm": norm_params(cfg.norm, d, pd, device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, (d, V), pd, device)
-    params["blocks"] = {"attn": _attn_params(cfg, generator, L, pd, device),
-                        "mlp": _mlp_params(cfg, generator, L, pd, device)}
+        params["lm_head"] = dense_init(g, (d, V), pd, device)
+    if cfg.family == "dense":
+        params["blocks"] = {"attn": _attn_params(cfg, g, L, pd, device),
+                            "mlp": _mlp_params(cfg, g, L, pd, device)}
+    else:
+        G, tail = _hybrid_group_counts(cfg)
+        params["blocks"] = {
+            "rec0": _rglru_block_params(cfg, g, G, pd, device),
+            "mlp0": _mlp_params(cfg, g, G, pd, device),
+            "rec1": _rglru_block_params(cfg, g, G, pd, device),
+            "mlp1": _mlp_params(cfg, g, G, pd, device),
+            "attn": _attn_params(cfg, g, G, pd, device),
+            "mlp2": _mlp_params(cfg, g, G, pd, device),
+        }
+        params["tail"] = {"rec": _rglru_block_params(cfg, g, tail, pd, device),
+                          "mlp": _mlp_params(cfg, g, tail, pd, device)} \
+            if tail else {}
     return _place(params, rc, device)
 
 
@@ -151,7 +217,13 @@ def embed_inputs(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
     _check_family(cfg)
     tokens = torch.as_tensor(batch["tokens"],
                              device=params["embed"].device).long()
-    return params["embed"][tokens].to(rc.compute_dtype)
+    h = params["embed"][tokens].to(rc.compute_dtype)
+    if cfg.family == "hybrid":            # gemma-style scaling
+        # the scale is rounded to h's dtype first, as the reference's
+        # jnp.asarray(d_model ** 0.5, h.dtype) is (50.5 in bf16)
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
+                             device=h.device)
+    return h
 
 
 def lm_logits(cfg: ArchConfig, params: Params, h, rc: RuntimeConfig):
@@ -164,28 +236,77 @@ def lm_logits(cfg: ArchConfig, params: Params, h, rc: RuntimeConfig):
 # Blocks
 # ===========================================================================
 
-def _attn_full(cfg, rc, h, p, positions):
+def _attn_full(cfg, rc, h, p, positions, *, window=None):
     x = apply_norm(cfg.norm, h, p["ln"])
     q, k, v = attn_lib.gqa_project_qkv(x, p, cfg, positions)
-    o = attn_lib.flash_attention(q, k, v, causal=True,
-                                 block_q=rc.flash_block_q,
-                                 block_kv=rc.flash_block_kv)
+    if window is not None:
+        o = attn_lib.local_attention(q, k, v, window=window,
+                                     block_q=rc.flash_block_q)
+    else:
+        o = attn_lib.flash_attention(q, k, v, causal=True,
+                                     block_q=rc.flash_block_q,
+                                     block_kv=rc.flash_block_kv)
     o = o.reshape(o.shape[:2] + (-1,))
     return h + torch.matmul(o, p["wo"].to(o.dtype)), (k, v)
 
 
-def _mlp_full(cfg, rc, h, p):
-    return h + ffn_lib.swiglu(apply_norm(cfg.norm, h, p["ln"]), p)
+def _mlp_full(cfg, rc, h, p, act=ffn_lib.swiglu):
+    return h + act(apply_norm(cfg.norm, h, p["ln"]), p)
 
 
-def _attn_decode(cfg, rc, h, p, ck, cv, pos, positions):
+def _rglru_full(cfg, rc, h, p):
+    """Returns (h, (h_last fp32, conv_state))."""
+    x = apply_norm(cfg.norm, h, p["ln"])
+    y = ffn_lib.gelu(torch.matmul(x, p["w_y"].to(x.dtype)))
+    xb = torch.matmul(x, p["w_xb"].to(x.dtype))
+    xb, conv_state = rec_lib.causal_conv1d(xb, p["conv_w"], p["conv_b"])
+    rec, h_last = rec_lib.rglru_scan(xb, p, cfg.n_heads)
+    out = torch.matmul(rec * y, p["w_out"].to(x.dtype))
+    return h + out, (h_last, conv_state)
+
+
+def _window_cache(x, W: int):
+    """The prefill's (B,S,...) keys or values as a W-slot ring: position
+    t in slot t % W; padded with zeros when S < W."""
+    S = x.shape[1]
+    if S >= W:
+        return torch.roll(x[:, -W:], S % W, dims=1)
+    pad = torch.zeros((x.shape[0], W - S) + x.shape[2:], dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([x, pad], dim=1)
+
+
+def _attn_decode(cfg, rc, h, p, ck, cv, pos, positions, window=None):
+    """``ck``/``cv`` (B,S,Hkv,dh) are one layer's cache, written in place.
+    With a window they are a ring: slot pos % W, and every slot is live
+    once the ring is full.  RoPE uses the absolute ``pos``."""
     x = apply_norm(cfg.norm, h, p["ln"])
     q, k, v = attn_lib.gqa_project_qkv(x, p, cfg, positions)
-    attn_lib.cache_update(ck, k[:, 0], pos)
-    attn_lib.cache_update(cv, v[:, 0], pos)
-    o = attn_lib.decode_attention(q[:, 0], ck, cv, pos)
+    if window is not None:
+        W = ck.shape[1]
+        slot, pos_eff = pos % W, min(pos, W - 1)
+    else:
+        slot = pos_eff = pos
+    attn_lib.cache_update(ck, k[:, 0], slot)
+    attn_lib.cache_update(cv, v[:, 0], slot)
+    o = attn_lib.decode_attention(q[:, 0], ck, cv, pos_eff)
     o = o.reshape(o.shape[0], 1, -1)
     return h + torch.matmul(o, p["wo"].to(o.dtype))
+
+
+def _rglru_decode(cfg, rc, h, p, rh, rconv):
+    """``rh`` (B,d_rnn) fp32 and ``rconv`` (B,W-1,d_rnn) are one layer's
+    states, written in place."""
+    x = apply_norm(cfg.norm, h, p["ln"])
+    y = ffn_lib.gelu(torch.matmul(x, p["w_y"].to(x.dtype)))
+    xb = torch.matmul(x, p["w_xb"].to(x.dtype))
+    xb, conv_state = rec_lib.causal_conv1d(xb, p["conv_w"], p["conv_b"],
+                                           state=rconv)
+    rec, h_new = rec_lib.rglru_step(xb[:, 0], p, cfg.n_heads, rh)
+    rh.copy_(h_new)
+    rconv.copy_(conv_state)
+    out = torch.matmul(rec * y[:, 0], p["w_out"].to(x.dtype))
+    return h + out[:, None]
 
 
 # ===========================================================================
@@ -197,10 +318,34 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
     """Zero-initialised decode cache."""
     _check_family(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, cfg.dh)
-    z = dict(dtype=rc.compute_dtype, device=device)
-    return {"ck": torch.zeros(shape, **z), "cv": torch.zeros(shape, **z),
-            "pos": 0}
+    B, dt = batch_size, rc.compute_dtype
+
+    def z(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    kv = (cfg.n_kv_heads, cfg.dh)
+    if cfg.family == "dense":
+        cache = {"ck": z(cfg.n_layers, B, max_len, *kv),
+                 "cv": z(cfg.n_layers, B, max_len, *kv)}
+    else:
+        G, tail = _hybrid_group_counts(cfg)
+        r = cfg.rglru
+        W = min(r.window, max_len)
+        cache = {
+            "rh0": z(G, B, r.d_rnn, dtype=torch.float32),
+            "rconv0": z(G, B, r.conv_width - 1, r.d_rnn),
+            "rh1": z(G, B, r.d_rnn, dtype=torch.float32),
+            "rconv1": z(G, B, r.conv_width - 1, r.d_rnn),
+            "wk": z(G, B, W, *kv),
+            "wv": z(G, B, W, *kv),
+        }
+        if tail:
+            cache["tail"] = {
+                "rh": z(tail, B, r.d_rnn, dtype=torch.float32),
+                "rconv": z(tail, B, r.conv_width - 1, r.d_rnn),
+            }
+    cache["pos"] = 0
+    return cache
 
 
 @torch.no_grad()
@@ -208,25 +353,51 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
             rc: RuntimeConfig = DEFAULT_RC, max_len: Optional[int] = None):
     """Full-sequence pass that also builds the decode cache.
 
-    Returns (last_logits, cache).  Caches are padded to ``max_len`` if
-    given and longer than the prompt.
+    Returns (last_logits, cache).  Dense caches are padded to ``max_len``
+    if given and longer than the prompt.  The hybrid cache is not: its
+    window ring has ``window`` slots whatever the prompt, as in the
+    reference (``lm.py:329-339,714-715``).
     """
     h = embed_inputs(cfg, params, batch, rc)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
-    T = max_len if (max_len is not None and max_len > S) else S
-    shape = (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.dh)
-    ck = torch.zeros(shape, dtype=rc.compute_dtype, device=h.device)
-    cv = torch.zeros(shape, dtype=rc.compute_dtype, device=h.device)
     blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        p = _layer(blocks, i)
-        h, (k, v) = _attn_full(cfg, rc, h, p["attn"], positions)
-        ck[i, :, :S] = k
-        cv[i, :, :S] = v
-        h = _mlp_full(cfg, rc, h, p["mlp"])
+    if cfg.family == "dense":
+        T = max_len if (max_len is not None and max_len > S) else S
+        cache = init_cache(cfg, B, T, rc, h.device)
+        for i in range(cfg.n_layers):
+            p = _layer(blocks, i)
+            h, (k, v) = _attn_full(cfg, rc, h, p["attn"], positions)
+            cache["ck"][i, :, :S] = k
+            cache["cv"][i, :, :S] = v
+            h = _mlp_full(cfg, rc, h, p["mlp"])
+    else:
+        G, n_tail = _hybrid_group_counts(cfg)
+        W = cfg.rglru.window
+        cache = init_cache(cfg, B, W, rc, h.device)
+        geglu = ffn_lib.geglu
+        for i in range(G):
+            p = _layer(blocks, i)
+            h, (cache["rh0"][i], cache["rconv0"][i]) = \
+                _rglru_full(cfg, rc, h, p["rec0"])
+            h = _mlp_full(cfg, rc, h, p["mlp0"], geglu)
+            h, (cache["rh1"][i], cache["rconv1"][i]) = \
+                _rglru_full(cfg, rc, h, p["rec1"])
+            h = _mlp_full(cfg, rc, h, p["mlp1"], geglu)
+            h, (k, v) = _attn_full(cfg, rc, h, p["attn"], positions,
+                                   window=W)
+            cache["wk"][i] = _window_cache(k, W)
+            cache["wv"][i] = _window_cache(v, W)
+            h = _mlp_full(cfg, rc, h, p["mlp2"], geglu)
+        tc = cache.get("tail")
+        for i in range(n_tail):
+            p = _layer(params["tail"], i)
+            h, (tc["rh"][i], tc["rconv"][i]) = \
+                _rglru_full(cfg, rc, h, p["rec"])
+            h = _mlp_full(cfg, rc, h, p["mlp"], geglu)
+    cache["pos"] = S
     logits = lm_logits(cfg, params, h[:, -1:], rc)[:, 0]
-    return logits, {"ck": ck, "cv": cv, "pos": S}
+    return logits, cache
 
 
 @torch.no_grad()
@@ -242,11 +413,32 @@ def decode_step(cfg: ArchConfig, params: Params, tokens, cache,
     B = tokens.shape[0]
     h = embed_inputs(cfg, params, {"tokens": tokens[:, None]}, rc)
     positions = torch.full((B, 1), pos, device=h.device)
-    ck, cv = cache["ck"], cache["cv"]
     blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        p = _layer(blocks, i)
-        h = _attn_decode(cfg, rc, h, p["attn"], ck[i], cv[i], pos, positions)
-        h = _mlp_full(cfg, rc, h, p["mlp"])
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            p = _layer(blocks, i)
+            h = _attn_decode(cfg, rc, h, p["attn"], cache["ck"][i],
+                             cache["cv"][i], pos, positions)
+            h = _mlp_full(cfg, rc, h, p["mlp"])
+    else:
+        G, n_tail = _hybrid_group_counts(cfg)
+        geglu = ffn_lib.geglu
+        c = cache
+        for i in range(G):
+            p = _layer(blocks, i)
+            h = _rglru_decode(cfg, rc, h, p["rec0"], c["rh0"][i],
+                              c["rconv0"][i])
+            h = _mlp_full(cfg, rc, h, p["mlp0"], geglu)
+            h = _rglru_decode(cfg, rc, h, p["rec1"], c["rh1"][i],
+                              c["rconv1"][i])
+            h = _mlp_full(cfg, rc, h, p["mlp1"], geglu)
+            h = _attn_decode(cfg, rc, h, p["attn"], c["wk"][i], c["wv"][i],
+                             pos, positions, window=cfg.rglru.window)
+            h = _mlp_full(cfg, rc, h, p["mlp2"], geglu)
+        for i in range(n_tail):
+            p = _layer(params["tail"], i)
+            h = _rglru_decode(cfg, rc, h, p["rec"], c["tail"]["rh"][i],
+                              c["tail"]["rconv"][i])
+            h = _mlp_full(cfg, rc, h, p["mlp"], geglu)
     logits = lm_logits(cfg, params, h, rc)[:, 0]
-    return logits, {"ck": ck, "cv": cv, "pos": pos + 1}
+    return logits, {**cache, "pos": pos + 1}

@@ -11,6 +11,7 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.decode_attention import decode_attention_tpu
 from repro_torch.kernels.flash_attention import flash_attention_tpu
+from repro_torch.kernels.rglru_scan import rglru_scan_tpu
 from repro_torch.kernels.systolic_gemm import gemm_partial, systolic_gemm
 
 pytestmark = pytest.mark.cuda
@@ -74,6 +75,28 @@ def test_flash_attention_ragged_and_views(gen, S, dh, causal):
     assert _err(out, ref.flash_attention_ref(q, k, v, causal=causal)) <= 5e-5
 
 
+@pytest.mark.parametrize("B,S,D", [(2, 128, 256), (1, 64, 512),
+                                   (1, 512, 2560), (1, 37, 100)])
+def test_rglru_scan(gen, B, S, D):
+    """No FMA contraction in the kernel: equal to the plain version."""
+    a = torch.rand((B, S, D), generator=gen, device="cuda") * 0.599 + 0.4
+    b, h0 = _randn(gen, B, S, D), _randn(gen, B, D)
+    out = rglru_scan_tpu(a, b, h0, block_s=S, block_d=D)
+    assert out.shape == (B, S, D) and out.dtype == torch.float32
+    assert _err(out, ref.rglru_scan_ref(a, b, h0)) <= 1e-5
+
+
+@pytest.mark.parametrize("S,window", [(2560, 2048), (300, 64), (100, 1)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_attention_window_dh256(gen, S, window, dtype, tol):
+    q = _randn(gen, 1, S, 10, 256, dtype=dtype).transpose(1, 2)
+    k = _randn(gen, 1, S, 1, 256, dtype=dtype).transpose(1, 2)
+    v = _randn(gen, 1, S, 1, 256, dtype=dtype).transpose(1, 2)
+    out = flash_attention_tpu(q, k, v, window=window, block_q=S, block_kv=S)
+    assert _err(out, ref.flash_attention_ref(q, k, v, window=window)) <= tol
+
+
 def test_each_call_counts_one_launch(gen):
     _build.reset_launches()
     a = _randn(gen, 64, 64)
@@ -82,8 +105,10 @@ def test_each_call_counts_one_launch(gen):
     q = _randn(gen, 1, 4, 16, 32)
     flash_attention_tpu(q, q, q)
     decode_attention_tpu(q[:, :, 0], q, q, 9)
+    rglru_scan_tpu(a[None], a[None], a[:1])
     assert _build.LAUNCHES == {"gemm_partial": 1, "systolic_gemm": 1,
-                               "decode_attention": 1, "flash_attention": 1}
+                               "decode_attention": 1, "flash_attention": 1,
+                               "rglru_scan": 1}
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
@@ -95,3 +120,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         flash_attention_tpu(q, q, q)               # head dim 48
     with pytest.raises(ValueError):
         decode_attention_tpu(q[:, :, 0], q, q, 16)  # pos outside the cache
+    a, h0 = _randn(gen, 2, 8, 4), _randn(gen, 2, 8)
+    with pytest.raises(TypeError):                 # the scan is fp32 only
+        rglru_scan_tpu(a.transpose(1, 2).contiguous().bfloat16(),
+                       a.transpose(1, 2).contiguous().bfloat16(),
+                       h0.bfloat16())
+    with pytest.raises(ValueError):                # not contiguous
+        rglru_scan_tpu(a.transpose(1, 2), a.transpose(1, 2), h0)

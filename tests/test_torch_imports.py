@@ -31,6 +31,8 @@ def test_every_port_module_is_found():
     mods = _port_modules()
     for want in ("repro_torch.core.serving", "repro_torch.models.lm",
                  "repro_torch.kernels.ops", "repro_torch.kernels._build",
+                 "repro_torch.kernels.rglru_scan",
+                 "repro_torch.models.recurrent",
                  "repro_torch.launch.serve",
                  "repro_torch.launch.preemptible_gemm",
                  "repro_torch.runtime.device"):
@@ -99,7 +101,7 @@ def test_kernel_build_key_covers_every_source():
     from repro_torch.kernels import _build
     srcs = {p.name for p in _build._sources()}
     assert {"gemm.cu", "decode_attention.cu", "flash_attention.cu",
-            "common.cuh"} <= srcs
+            "rglru_scan.cu", "common.cuh"} <= srcs
     assert _build._key() == _build._key()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == ROOT / "build" / "repro_torch_kernels"

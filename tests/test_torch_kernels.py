@@ -169,6 +169,9 @@ def test_cpu_tensors_never_launch_a_kernel():
     ops.decode_attention(q[:, :, 0], k, k, 5, block_s=8)
     ops.gemm(a, a, bm=64, bn=64, bk=64)
     ops.gemm_resume(a, a, torch.zeros(64, 64), 0, 1, bk=64)
+    ops.flash_attention(q, k, k, window=4)
+    ops.rglru(a[None], a[None], a[:1])
     assert _build.LAUNCHES == {"gemm_partial": 0, "systolic_gemm": 0,
-                               "decode_attention": 0, "flash_attention": 0}
+                               "decode_attention": 0, "flash_attention": 0,
+                               "rglru_scan": 0}
     assert _build._lib is None            # nothing was built or loaded

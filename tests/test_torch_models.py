@@ -55,10 +55,14 @@ def _close(t, j, atol=ATOL):
 
 
 def test_configs_match_the_reference():
-    for name in ("tinyllama-1.1b", ARCH):
+    for name in ("tinyllama-1.1b", ARCH, "recurrentgemma-2b",
+                 "recurrentgemma-2b-smoke"):
         jc, tc = j_get_config(name), get_config(name)
         for f in dataclasses.fields(tc):
-            assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+            got, want = getattr(tc, f.name), getattr(jc, f.name)
+            if dataclasses.is_dataclass(got):   # the sub-configs (rglru)
+                got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+            assert got == want, (name, f.name)
         assert tc.dh == jc.dh
 
 

@@ -2,14 +2,15 @@
 model-backed scenarios of tests/test_serving.py (TestMESCServing x3,
 TestMultiLaneServing x2): same step order, same generated tokens, same
 saves and preemptions, and an empty arena at the end.  Both servers run
-tinyllama-1.1b-smoke in fp32 on the CPU with the same parameters (the
-reference's, converted by ``params_from_jax``)."""
+tinyllama-1.1b-smoke and recurrentgemma-2b-smoke in fp32 on the CPU with
+the same parameters (the reference's, converted by ``params_from_jax``)."""
 import dataclasses
 from typing import Any
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as j_get_config
 from repro.core import scheduler as j_scheduler
@@ -23,6 +24,7 @@ from repro_torch.models import lm
 from repro_torch.models.common import CPU_RC
 
 ARCH = "tinyllama-1.1b-smoke"
+HYBRID = "recurrentgemma-2b-smoke"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,17 +39,20 @@ class Side:
 _SIDES = {}
 
 
-def _sides():
-    if not _SIDES:
-        jcfg = j_get_config(ARCH)
+def _sides(arch=ARCH, **overrides):
+    """The reference's and the port's server modules with one model,
+    ``arch`` with config ``overrides``, on each side."""
+    key = (arch, tuple(sorted(overrides.items())))
+    if key not in _SIDES:
+        jcfg = dataclasses.replace(j_get_config(arch), **overrides)
         jp = j_lm.init_params(jcfg, jax.random.PRNGKey(0), J_CPU_RC)
-        tcfg = get_config(ARCH)
+        tcfg = dataclasses.replace(get_config(arch), **overrides)
         tp = lm.params_from_jax(tcfg, jax.tree_util.tree_map(np.asarray, jp),
                                 CPU_RC, device="cpu")
-        _SIDES["jax"] = Side(j_serving, j_task.Crit, j_scheduler.Policy,
-                             jcfg, jp)
-        _SIDES["torch"] = Side(serving, task.Crit, scheduler.Policy, tcfg, tp)
-    return _SIDES
+        _SIDES[key] = {
+            "jax": Side(j_serving, j_task.Crit, j_scheduler.Policy, jcfg, jp),
+            "torch": Side(serving, task.Crit, scheduler.Policy, tcfg, tp)}
+    return _SIDES[key]
 
 
 def _req(s: Side, rid, crit, prio, n=6):
@@ -165,9 +170,14 @@ SCENARIOS = [hi_preempts_lo, non_preemptive_runs_to_completion,
              non_preemptive_lane_isolation]
 
 
-@pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)
-def test_port_serves_like_the_reference(scenario):
-    sides = _sides()
+# the tinyllama cases keep their bare scenario ids
+CASES = [pytest.param(f, ARCH, id=f.__name__) for f in SCENARIOS] + \
+    [pytest.param(f, HYBRID, id=f"{f.__name__}-{HYBRID}") for f in SCENARIOS]
+
+
+@pytest.mark.parametrize("scenario,arch", CASES)
+def test_port_serves_like_the_reference(scenario, arch):
+    sides = _sides(arch)
     want = scenario(sides["jax"])
     got = scenario(sides["torch"])
     assert got["order"] == want["order"]
@@ -189,6 +199,38 @@ def test_eviction_moves_the_cache_to_host_and_back():
     assert a.cache["ck"].device.type == "cpu" and a.cache["pos"] == 9
     srv.run()
     assert a.done and b.done and a.cache is None
+
+
+def _leaf_devices(cache):
+    out = []
+    for v in cache.values():
+        if isinstance(v, dict):
+            out += _leaf_devices(v)
+        elif isinstance(v, torch.Tensor):
+            out.append(v.device.type)
+    return out
+
+
+def test_eviction_moves_every_leaf_of_a_hybrid_cache():
+    """A 5-layer hybrid keeps its tail layers' RG-LRU states under
+    ``cache["tail"]``: a save must take them to the host with the rest,
+    and a restore bring them back.  The CPU has no second device, so the
+    restore targets the ``meta`` device, where a leaf left behind would
+    still be on the CPU."""
+    s = _sides(HYBRID, n_layers=5, tie_embeddings=False)["torch"]
+    srv = s.serving.MESCServer(s.cfg, s.params, max_len=32, resident_slots=1)
+    a = _req(s, 0, "LO", 1)
+    srv.submit(a)
+    srv.step()
+    assert set(a.cache["tail"]) == {"rh", "rconv"}
+    srv._evict(a)
+    assert a.saves == 1 and not a.resident
+    assert set(_leaf_devices(a.cache)) == {"cpu"}
+    assert len(_leaf_devices(a.cache)) == 8       # 6 + the tail's 2
+    srv.device = torch.device("meta")
+    srv._restore(a)
+    assert a.resident and set(_leaf_devices(a.cache)) == {"meta"}
+    assert a.cache["pos"] == 9
 
 
 def test_heuristics_and_mode_severity_are_the_reference_tables():
