@@ -7,12 +7,18 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 and then, failing on the first phase that goes wrong:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA
-   versions, the kernels' build time and ``ptxas`` register/spill lines;
+   versions, the kernels' build time and ``ptxas`` register/spill lines,
+   and for each flash and decode kernel whether its SASS holds tensor-core
+   instructions (``HMMA``); the bf16 flash kernel must, and it and the
+   decode kernel must not spill;
 2. holds every kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at the sweep shapes of tests/test_kernels.py,
    in fp32 and bf16: the GEMM, decode and flash kernels at TinyLlama's
    shapes, the RG-LRU scan, flash with a 2048 window at dh 256 and decode
-   at dh 256 / G 10 on a 2048-slot ring at recurrentgemma-2b's;
+   at dh 256 / G 10 on a 2048-slot ring at recurrentgemma-2b's; the bf16
+   flash kernel at every head dim it instantiates; decode at the edges of
+   its split plan's chunks, each call made twice and required to repeat
+   bit for bit, and one decode call profiled to be one kernel launch;
 3. checks full-width TinyLlama-1.1B, and recurrentgemma-2b cut to 5
    layers (one (rglru, rglru, attn) group and the 2-layer tail) with a
    512-token prompt, in fp32, teacher-forced, on the card (kernels)
@@ -40,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -128,6 +135,76 @@ def host_call_ms(fn, reps: int = 30) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# 1. what the attention kernels compiled to
+# ---------------------------------------------------------------------------
+
+ATTN_KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_kernel")
+NO_SPILL = ("flash_mma_kernel", "decode_kernel")   # the redesigned ones
+
+
+def _short(mangled: str) -> str:
+    """``decode_kernel<bf16,64>`` from a mangled entry name."""
+    m = re.search(r"(%s)I(.*?)EEv" % "|".join(ATTN_KERNELS), mangled)
+    if not m:
+        return mangled
+    args = m.group(2).replace("13__nv_bfloat16", "bf16,")
+    args = re.sub(r"Li(\d+)E?", r"\1", re.sub(r"^f", "f32,", args))
+    return f"{m.group(1)}<{args}>"
+
+
+def attention_kernel_report() -> list:
+    """Registers and spills (``ptxas -v``) and whether the SASS holds
+    ``HMMA`` (``cuobjdump -sass``), for every flash and decode entry."""
+    from repro_torch.kernels import _build
+    entries, cur = {}, None
+    for ln in _build.ptxas_report().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = m.group(1) if any(k in m.group(1) for k in ATTN_KERNELS) \
+                else None
+            if cur:
+                entries[cur] = {"name": _short(cur)}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            entries[cur]["spill_stores"] = int(m.group(1))
+            entries[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            entries[cur]["registers"] = int(m.group(1))
+    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, timeout=600,
+                          check=True).stdout
+    fn = None
+    hmma = {}
+    for ln in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            hmma.setdefault(fn, False)
+        elif fn and "HMMA" in ln:
+            hmma[fn] = True
+    rows = []
+    for mangled, e in sorted(entries.items(), key=lambda kv: kv[1]["name"]):
+        e["hmma"] = hmma.get(mangled)
+        log(f"  {e['name']}: {e.get('registers')} registers, spill "
+            f"{e.get('spill_stores')}/{e.get('spill_loads')} bytes "
+            f"(stores/loads), HMMA in SASS: {e['hmma']}")
+        rows.append(e)
+    for e in rows:
+        if any(e["name"].startswith(k) for k in NO_SPILL):
+            assert e.get("spill_stores") == 0 and e.get("spill_loads") == 0, e
+        if e["name"].startswith("flash_mma_kernel"):
+            assert e["hmma"], e
+    assert sum(e["name"].startswith("flash_mma_kernel") for e in rows) == 5
+    assert sum(e["name"].startswith("decode_kernel") for e in rows) == 10
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +302,7 @@ def phase_kernels(dev):
                                             block_q=bq, block_kv=bkv),
                         ref.flash_attention_ref(q, k, v, causal=causal), 5e-5)
     phase_hybrid_kernels(dev, gen)
+    phase_attention_edges(dev, gen)
     torch.cuda.synchronize()
 
 
@@ -269,6 +347,79 @@ def phase_hybrid_kernels(dev, gen):
                         f"{dt}", decode_attention_tpu(q, kc, vc, pos),
                         ref.decode_attention_ref(q, kc, vc, pos),
                         ATTN_TOL[dt])
+
+
+def phase_attention_edges(dev, gen):
+    """The bf16 tensor-core flash kernel at every head dim it instantiates;
+    decode at the edges of its split plan's chunks, every call twice and
+    bit-identical (the last block reset its counter), and one call
+    profiled to be one kernel launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import (HEADS_PER_BLOCK,
+                                                      decode_attention_tpu,
+                                                      split_plan)
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     flash_attention_tpu)
+    bf = torch.bfloat16
+    # GQA 8/2, MQA 4/1, MHA 4/4 (batch 2); ragged S; model-layout views
+    for dh in HEAD_DIMS:
+        for (B, Hq, Hkv) in [(1, 8, 2), (1, 4, 1), (2, 4, 4)]:
+            for S in (8, 100):
+                q = randn((B, S, Hq, dh), gen, bf).transpose(1, 2)
+                k = randn((B, S, Hkv, dh), gen, bf).transpose(1, 2)
+                v = randn((B, S, Hkv, dh), gen, bf).transpose(1, 2)
+                for causal in (True, False):
+                    check_close(f"flash bf16 dh{dh} B{B} Hq{Hq} Hkv{Hkv} S{S}"
+                                f" causal={causal}",
+                                flash_attention_tpu(q, k, v, causal=causal),
+                                ref.flash_attention_ref(q, k, v,
+                                                        causal=causal),
+                                ATTN_TOL[bf])
+        q = randn((1, 300, 4, dh), gen, bf).transpose(1, 2)
+        k = randn((1, 300, 1, dh), gen, bf).transpose(1, 2)
+        v = randn((1, 300, 1, dh), gen, bf).transpose(1, 2)
+        check_close(f"flash bf16 dh{dh} Hq4 Hkv1 S300 window 64",
+                    flash_attention_tpu(q, k, v, window=64, block_q=300,
+                                        block_kv=300),
+                    ref.flash_attention_ref(q, k, v, window=64), ATTN_TOL[bf])
+    # decode: TinyLlama, the hybrid's ring, and B 2 x Hkv 2 (more than one
+    # counter) at both families' head shapes
+    for (B, Hkv, G, dh, S) in [(1, 4, 8, 64, 1024), (1, 1, 10, 256, 2048),
+                               (2, 2, 4, 64, 256), (2, 2, 10, 256, 1024)]:
+        for dt in (torch.float32, bf):
+            q = randn((B, Hkv * G, dh), gen, dt)
+            kc = randn((B, S, Hkv, dh), gen, dt).transpose(1, 2)
+            vc = randn((B, S, Hkv, dh), gen, dt).transpose(1, 2)
+            chunk, _ = split_plan(B, Hkv, S, G, dh, itemsize=q.element_size())
+            for pos in sorted({0, chunk - 1, chunk, 535, S - 1} &
+                              set(range(S))):
+                got = decode_attention_tpu(q, kc, vc, pos)
+                again = decode_attention_tpu(q, kc, vc, pos)
+                assert torch.equal(got, again), (B, Hkv, G, dh, S, pos, dt)
+                check_close(f"decode B{B} Hkv{Hkv} G{G} dh{dh} S{S} pos {pos}"
+                            f" {dt} (twice, bit-identical)", got,
+                            ref.decode_attention_ref(q, kc, vc, pos),
+                            ATTN_TOL[dt])
+    chunk, n_split = split_plan(1, 1, 536, 10, 256)
+    blocks = n_split * -(-10 // HEADS_PER_BLOCK)
+    log(f"  decode plan, recurrentgemma-2b at ring position 535: chunk "
+        f"{chunk}, {n_split} splits x {-(-10 // HEADS_PER_BLOCK)} head "
+        f"groups = {blocks} blocks (fixed 64-position chunks: 9)")
+    assert blocks > 9
+    RECORD["hybrid_decode_blocks_pos535"] = blocks
+    q = randn((1, 10, 256), gen, bf)
+    kc = randn((1, 2048, 1, 256), gen, bf).transpose(1, 2)
+    decode_attention_tpu(q, kc, kc, 535)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode_attention_tpu(q, kc, kc, 535)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    log(f"  one decode call launched {len(names)} kernel(s): {names}")
+    assert len(names) == 1 and "decode_kernel" in names[0], names
 
 
 # ---------------------------------------------------------------------------
@@ -523,7 +674,21 @@ def profile_decode(cfg, params, rc, steps: int = 5) -> dict:
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3 / steps
     per_step = sum(e.count for e in kernels) / steps
     top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        lm.prefill(cfg, params, {"tokens": prompt}, rc, max_len=1024)
+        torch.cuda.synchronize()
+    pk = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    prefill_busy = sum(_device_us(e) for e in pk) / 1e3
+    prefill_top = {e.key[:60]: _device_us(e) / 1e3
+                   for e in sorted(pk, key=_device_us, reverse=True)[:5]}
+    log(f"  prefill of 512 tokens: card busy {prefill_busy:.3f} ms")
+    for name, ms in prefill_top.items():
+        log(f"    {ms:.4f} ms/prefill  {name}")
     out = {"prefill_512_wall_ms": prefill_ms,
+           "prefill_512_device_busy_ms": prefill_busy,
+           "prefill_top_kernels_ms": prefill_top,
            "decode_step_wall_ms": wall_ms,
            "decode_step_device_busy_ms": busy_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms,
@@ -566,6 +731,15 @@ def phase_gemm(dev):
 # 6. timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
+# the redesigned rows' kernel times before their redesign, when flash ran
+# on FFMA and decode in two kernels (PERF.md's kernel table: this script's
+# phase 6 on an NVIDIA H100 80GB HBM3 at 700 W); printed beside the new
+# times, never in the kernels line
+BEFORE_REDESIGN_MS = {"decode_attention": 0.0247, "flash_attention": 0.1891,
+                      "decode_attention@recurrentgemma-2b": 0.0755,
+                      "flash_attention@recurrentgemma-2b": 1.7546}
+
+
 def _bound(flops, nbytes, peak):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -606,6 +780,12 @@ def phase_timing(dev, launches, card, power):
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, host "
             f"call {r['call_ms']:.4f} ms, bound "
             f"{bound_ms:.5f} ms ({bound_by}), max|err| {err:.2e}")
+        if r["library_ms"]:
+            log(f"    {r['ms'] / r['library_ms']:.2f}x the library call")
+        if name in BEFORE_REDESIGN_MS:
+            before = BEFORE_REDESIGN_MS[name]
+            log(f"    before the redesign: {before} ms, "
+                f"{before / r['ms']:.1f}x this kernel's time")
 
     def decode_row(name, Hq, Hkv, dh, S, pos, note):
         """One layer's decode attention; the library call gets the KV
@@ -636,7 +816,7 @@ def phase_timing(dev, launches, card, power):
         pairs = S * (S + 1) // 2
         kr = k.repeat_interleave(Hq // Hkv, dim=1)
         vr = v.repeat_interleave(Hq // Hkv, dim=1)
-        row(name, "src/repro_torch/kernels/csrc/flash_attention.cu",
+        row(name, "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
             "src/repro/kernels/flash_attention.py:64",
             lambda: flash_attention_tpu(q, k, v, window=window),
             lambda: ref.flash_attention_ref(q, k, v, window=window),
@@ -703,8 +883,28 @@ def phase_timing(dev, launches, card, power):
              "card": card, "power_limit": power}
     log(f"  {extra['name']}: kernel {extra['ms']:.4f} ms, torch.matmul "
         f"{extra['library_ms']:.4f} ms, bound {extra['bound_ms']:.5f} ms")
+    extras = [extra]
+    # decode later in a request (not main-path rows): TinyLlama's cache
+    # nearly full, the hybrid's ring full (128 splits, two combine levels)
+    for name, Hq, Hkv, dh, S, pos in [("decode_attention@pos1023", 32, 4, 64,
+                                       1024, 1023),
+                                      ("decode_attention@recurrentgemma-2b"
+                                       "@pos2047", 10, 1, 256, 2048, 2047)]:
+        q = randn((1, Hq, dh), gen, bf)
+        kc = randn((1, S, Hkv, dh), gen, bf).transpose(1, 2)
+        kr = kc[:, :, :pos + 1].repeat_interleave(Hq // Hkv, dim=1)
+        e = {"name": name, "shape": f"q 1x{Hq}x{dh}, cache 1x{Hkv}x{S}x{dh} "
+             f"bf16, pos {pos}",
+             "ms": cuda_time_ms(lambda: decode_attention_tpu(q, kc, kc, pos)),
+             "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                 q[:, :, None], kr, kr)),
+             "card": card, "power_limit": power}
+        log(f"  {name}: kernel {e['ms']:.4f} ms, SDPA "
+            f"{e['library_ms']:.4f} ms")
+        extras.append(e)
     RECORD["kernels"] = rows
-    RECORD["extra_timings"] = [extra]
+    RECORD["extra_timings"] = extras
+    RECORD["before_redesign_ms"] = BEFORE_REDESIGN_MS
     return rows
 
 
@@ -723,12 +923,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.lib()
     log(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
     for ln in _build.ptxas_report().splitlines():
         if "entry function" in ln or "registers" in ln or "spill" in ln:
             log("  ptxas: " + ln.strip())
     RECORD.update(card=card, power_limit=power, torch=torch.__version__,
-                  cuda=torch.version.cuda,
-                  build_s=time.perf_counter() - t0)
+                  cuda=torch.version.cuda, build_s=build_s,
+                  attention_kernels=attention_kernel_report())
 
     phase_kernels(dev)
     from repro_torch.configs import get_config

@@ -3,8 +3,11 @@
 systolic_gemm     — checkpointable GEMM: fp32 accumulator seeded from a
                     saved one (preemption inside a GEMM) or from zero
 flash_attention   — causal flash attention with true tile skipping and an
-                    optional local window (prefill)
-decode_attention  — split-S flash-decoding for the KV cache (decode)
+                    optional local window (prefill): bf16 on the tensor
+                    cores (mma.sync), fp32 on FFMA (the parity path)
+decode_attention  — flash-decoding for the KV cache (decode) in one
+                    launch: split blocks sized to fill the card, the
+                    combine done by the last block of each KV head
 rglru_scan        — RG-LRU linear recurrence along S (hybrid prefill)
 
 csrc/ holds the CUDA sources, built at first CUDA use by _build.py;

@@ -43,17 +43,22 @@ _SIGNATURES = {
     # in_dtype, out_dtype, A, B, acc_in, C, M, N, K, lda, ldb, ldacc, ldc,
     # stream
     "repro_gemm": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P],
-    # dtype, q, k, v, out, part_m, part_l, part_acc, B, Hkv, G, dh, pos,
-    # n_split, q strides (b, h), k strides (b, h, s), v strides (b, h, s),
-    # scale, stream
-    "repro_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
-                               ctypes.c_float, _P],
-    # dtype, q, k, v, out, B, Hq, Hkv, S, Skv, dh, causal, window,
-    # q/k/v/o strides (b, h, s) each, scale, stream
-    "repro_flash_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                              _L, ctypes.c_float, _P],
+    # dtype, q, k, v, out, part, counters, B, Hkv, G, dh, pos, chunk,
+    # n_split, n_grp, q strides (b, h), k strides (b, h, s), v strides
+    # (b, h, s), scale, stream
+    "repro_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
+                               _L, ctypes.c_float, _P],
+    # q, k, v, out, B, Hq, Hkv, S, Skv, dh, causal, window, q/k/v/o
+    # strides (b, h, s) each, scale, stream; _f32 is the FFMA kernel
+    # (flash_attention.cu), _bf16 the tensor-core one
+    # (flash_attention_mma.cu)
+    "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                  _L, _L, ctypes.c_float, _P],
+    "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
+                                   _L, _L, _L, _L, ctypes.c_float, _P],
     # a, b, h0, out, B, S, D, stream
     "repro_rglru_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
@@ -120,12 +125,17 @@ def _build(lib_path: Path) -> None:
         os.replace(tmp_lib, lib_path)          # atomic for other builders
 
 
+def library_path() -> Path:
+    """Where the shared library of the current sources is (or will be)."""
+    return BUILD_DIR / f"librepro_torch_kernels_{_key()}.so"
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built first if its sources changed."""
     global _lib
     with _lock:
         if _lib is None:
-            lib_path = BUILD_DIR / f"librepro_torch_kernels_{_key()}.so"
+            lib_path = library_path()
             if not lib_path.exists():
                 _build(lib_path)
             handle = ctypes.CDLL(str(lib_path))
@@ -140,7 +150,7 @@ def lib() -> ctypes.CDLL:
 def ptxas_report() -> str:
     """What ``-Xptxas -v`` said for each source of the current build."""
     lib()
-    stem = f"librepro_torch_kernels_{_key()}"
+    stem = library_path().stem
     return "\n".join(p.read_text() for p in
                      sorted(BUILD_DIR.glob(f"{stem}.*.log")))
 
@@ -160,6 +170,16 @@ def dtype_code(t: torch.Tensor) -> int:
     except KeyError:
         raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}") \
             from None
+
+
+def check_aligned(*tensors: torch.Tensor) -> None:
+    """Raise unless every row of each tensor starts 16-byte aligned: the
+    kernels that copy rows 16 bytes at a time need it."""
+    for t in tensors:
+        per = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(s % per for s in t.stride()[:-1]):
+            raise ValueError("kernel needs rows that start 16-byte aligned "
+                             f"(strides {t.stride()}, {t.dtype})")
 
 
 def reset_launches() -> None:

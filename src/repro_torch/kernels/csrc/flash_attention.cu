@@ -1,14 +1,16 @@
-// Causal (or full) flash attention for Hopper (sm_90a), the prefill path,
-// with an optional local window (the hybrid family's banded attention).
+// Causal (or full) flash attention for Hopper (sm_90a) in fp32, the parity
+// path of the prefill, with an optional local window (the hybrid family's
+// banded attention).  bf16, the serving path, runs on the tensor-core
+// kernel in flash_attention_mma.cu.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_tpu
 // (_flash_kernel), and with a window the banded attention of
-// src/repro/models/attention.py::local_attention.
+// src/repro/models/attention.py::local_attention, for fp32.
 //
 // What bounds it on the H100: a causal pass over S tokens does ~2*S^2*dh
-// FLOP per query head on 4*S*dh values, so at the 512-token prompt it is
-// operations-bound (989 TFLOP/s bf16 on the tensor cores); at the 8-token
-// serving prompt it is launch-bound.
+// FLOP per query head on 4*S*dh values; in fp32 outside the tensor cores
+// (67 TFLOP/s) the 512-token prompt is operations-bound; the 8-token
+// serving prompt is launch-bound.
 //
 // What the design does about it, simply and right first: a grid of
 // (B*Hq, ceil(S/BQ)) blocks.  A block owns BQ query rows, one thread per
@@ -21,15 +23,13 @@
 // KV tiles wholly below the band of the block's first row are skipped the
 // same way, so a banded pass costs O(S * W).  Per tile it applies the
 // reference's online softmax in fp32: mask, m_new,
-// p = exp(s - m_new) * (s > NEG_INF*0.5), corr = exp(m - m_new),
-// p rounded to v's dtype before the PV product.  GQA maps query head h to
-// KV head h / G.  Every tensor goes in through its strides, so the model's
-// (B,S,H,dh) q/k/v are passed as views; the ragged S edge (an 8-token
-// prompt fits no tile) is masked.  The tiles live in dynamic shared memory:
-// at dh 256 they take 65 KB, over the 48 KB a static array may hold.  At
-// dh 256 acc[256] does not fit in registers and spills to local memory
-// (ptxas reports it); tensor-core (wgmma) QK^T and PV with TMA-fed tiles,
-// and dh split across threads, are later work.
+// p = exp(s - m_new) * (s > NEG_INF*0.5), corr = exp(m - m_new).  GQA maps
+// query head h to KV head h / G.  Every tensor goes in through its strides,
+// so the model's (B,S,H,dh) q/k/v are passed as views; the ragged S edge
+// (an 8-token prompt fits no tile) is masked.  The tiles live in dynamic
+// shared memory: at dh 256 they take 65 KB, over the 48 KB a static array
+// may hold.  At dh 256 acc[256] does not fit in registers and spills to
+// local memory (ptxas reports it); the parity path accepts that.
 #include "common.cuh"
 
 using namespace repro;
@@ -170,21 +170,18 @@ int dispatch(int dh, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; dh in {16, 32, 64, 128, 256}; window 0
-// means none, > 0 needs causal.  Strides are in elements, (batch, head,
-// sequence) for q, k, v and o; the last dimension is contiguous.
-extern "C" int repro_flash_attention(
-    int dtype, const void* q, const void* k, const void* v, void* o, int B,
-    int Hq, int Hkv, int S, int Skv, int dh, int causal, int window, i64 sqb,
+// fp32 only; dh in {16, 32, 64, 128, 256}; window 0 means none, > 0 needs
+// causal.  Strides are in elements, (batch, head, sequence) for q, k, v and
+// o; the last dimension is contiguous.
+extern "C" int repro_flash_attention_f32(
+    const void* q, const void* k, const void* v, void* o, int B, int Hq,
+    int Hkv, int S, int Skv, int dh, int causal, int window, i64 sqb,
     i64 sqh, i64 sqs, i64 skb, i64 skh, i64 sks, i64 svb, i64 svh, i64 svs,
     i64 sob, i64 soh, i64 sos, float scale, void* stream) {
   const i64 st[12] = {sqb, sqh, sqs, skb, skh, sks,
                       svb, svh, svs, sob, soh, sos};
   cudaStream_t s = (cudaStream_t)stream;
   if (window > 0 && !causal) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return dispatch<float>(dh, q, k, v, o, B, Hq, Hkv, S, Skv, causal, window,
-                           st, scale, s);
-  return dispatch<__nv_bfloat16>(dh, q, k, v, o, B, Hq, Hkv, S, Skv, causal,
-                                 window, st, scale, s);
+  return dispatch<float>(dh, q, k, v, o, B, Hq, Hkv, S, Skv, causal, window,
+                         st, scale, s);
 }

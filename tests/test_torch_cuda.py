@@ -9,8 +9,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.decode_attention import decode_attention_tpu
-from repro_torch.kernels.flash_attention import flash_attention_tpu
+from repro_torch.kernels.decode_attention import (decode_attention_tpu,
+                                                  split_plan)
+from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_tpu
 from repro_torch.kernels.rglru_scan import rglru_scan_tpu
 from repro_torch.kernels.systolic_gemm import gemm_partial, systolic_gemm
 
@@ -95,6 +96,109 @@ def test_flash_attention_window_dh256(gen, S, window, dtype, tol):
     v = _randn(gen, 1, S, 1, 256, dtype=dtype).transpose(1, 2)
     out = flash_attention_tpu(q, k, v, window=window, block_q=S, block_kv=S)
     assert _err(out, ref.flash_attention_ref(q, k, v, window=window)) <= tol
+
+
+BF16_TOL = 2e-2
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("S", [8, 100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_tensor_core_kernel_every_head_dim(gen, dh, S, causal):
+    """The bf16 (tensor-core) kernel at every head dim it instantiates:
+    GQA 8/2, a ragged S, model-layout views."""
+    bf = torch.bfloat16
+    q = _randn(gen, 1, S, 8, dh, dtype=bf).transpose(1, 2)
+    k = _randn(gen, 1, S, 2, dh, dtype=bf).transpose(1, 2)
+    v = _randn(gen, 1, S, 2, dh, dtype=bf).transpose(1, 2)
+    out = flash_attention_tpu(q, k, v, causal=causal)
+    assert out.dtype == bf and out.shape == (1, 8, S, dh)
+    assert _err(out, ref.flash_attention_ref(q, k, v, causal=causal)) \
+        <= BF16_TOL
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("B,Hq,Hkv", [(1, 4, 1), (2, 4, 4)])
+def test_flash_bf16_window_every_head_dim(gen, dh, B, Hq, Hkv):
+    """A window that cuts the band, MQA and MHA, batch 2."""
+    bf = torch.bfloat16
+    q = _randn(gen, B, Hq, 300, dh, dtype=bf)
+    k = _randn(gen, B, Hkv, 300, dh, dtype=bf)
+    v = _randn(gen, B, Hkv, 300, dh, dtype=bf)
+    out = flash_attention_tpu(q, k, v, window=64, block_q=300,
+                              block_kv=300)
+    assert _err(out, ref.flash_attention_ref(q, k, v, window=64)) <= BF16_TOL
+
+
+# (B, Hkv, G, dh, S): TinyLlama, recurrentgemma-2b's ring, B*Hkv > 1, MHA,
+# G 10 over two head groups at batch 2
+DECODE_SHAPES = [(1, 4, 8, 64, 1024), (1, 1, 10, 256, 2048),
+                 (2, 2, 4, 64, 256), (1, 4, 1, 32, 256),
+                 (2, 2, 10, 256, 512)]
+
+
+def _edge_positions(B, Hkv, G, dh, S, itemsize):
+    """0, the edges of the first chunk of the plan for a full cache, 535
+    and the last slot."""
+    chunk, _ = split_plan(B, Hkv, S, G, dh, itemsize=itemsize)
+    return sorted({p for p in (0, chunk - 1, chunk, chunk + 1, 535, S - 1)
+                   if p < S})
+
+
+@pytest.mark.parametrize("B,Hkv,G,dh,S", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_decode_at_chunk_edges_repeats_bit_for_bit(gen, B, Hkv, G, dh, S,
+                                                   dtype, tol):
+    """Against the plain version at the split plan's chunk edges; a second
+    call gives the same bits, so the last block reset its counter."""
+    q = _randn(gen, B, Hkv * G, dh, dtype=dtype)
+    kc = _randn(gen, B, S, Hkv, dh, dtype=dtype).transpose(1, 2)
+    vc = _randn(gen, B, S, Hkv, dh, dtype=dtype).transpose(1, 2)
+    for pos in _edge_positions(B, Hkv, G, dh, S, q.element_size()):
+        out = decode_attention_tpu(q, kc, vc, pos)
+        again = decode_attention_tpu(q, kc, vc, pos)
+        assert torch.equal(out, again), pos
+        assert _err(out, ref.decode_attention_ref(q, kc, vc, pos)) <= tol, \
+            pos
+
+
+def test_decode_in_a_cuda_graph_equals_the_eager_call(gen):
+    """The counters reset themselves, so a captured decode call replays."""
+    bf = torch.bfloat16
+    q = _randn(gen, 1, 10, 256, dtype=bf)
+    kc = _randn(gen, 1, 2048, 1, 256, dtype=bf).transpose(1, 2)
+    vc = _randn(gen, 1, 2048, 1, 256, dtype=bf).transpose(1, 2)
+    want = decode_attention_tpu(q, kc, vc, 535)       # sizes the counters
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention_tpu(q, kc, vc, 535)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_tpu(q, kc, vc, 535)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def test_decode_is_one_kernel_launch(gen):
+    """The combine runs in the same launch as the split blocks."""
+    from torch.profiler import ProfilerActivity, profile
+    q = _randn(gen, 1, 32, 64, dtype=torch.bfloat16)
+    kc = _randn(gen, 1, 4, 1024, 64, dtype=torch.bfloat16)
+    decode_attention_tpu(q, kc, kc, 535)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode_attention_tpu(q, kc, kc, 535)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "decode_kernel" in kernels[0].name, \
+        [e.name for e in kernels]
 
 
 def test_each_call_counts_one_launch(gen):

@@ -175,3 +175,50 @@ def test_cpu_tensors_never_launch_a_kernel():
                                "decode_attention": 0, "flash_attention": 0,
                                "rglru_scan": 0}
     assert _build._lib is None            # nothing was built or loaded
+
+
+def _c_entry_points():
+    """name -> ctypes kinds of each ``extern "C" int name(...)`` in csrc."""
+    import re
+    kinds = {"void*": "P", "int": "I", "i64": "L", "float": "F"}
+    found = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', text):
+            types = []
+            for p in params.split(","):
+                words = p.replace("const ", "").replace("*", "* ").split()
+                types.append(kinds["".join(words[:-1])])
+            assert name not in found, f"{name} defined twice"
+            found[name] = types
+    return found
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Every C entry point's parameters, in order, as ``_build`` declares
+    them to ctypes: a pointer passed as a 32-bit int would be cut."""
+    import ctypes
+    kind = {ctypes.c_void_p: "P", ctypes.c_int: "I", ctypes.c_longlong: "L",
+            ctypes.c_float: "F"}
+    declared = {name: [kind[t] for t in argtypes]
+                for name, argtypes in _build._SIGNATURES.items()}
+    assert declared == _c_entry_points()
+
+
+@pytest.mark.parametrize("dtype,offset,ok", [
+    (torch.bfloat16, 0, True), (torch.bfloat16, 8, True),
+    (torch.bfloat16, 4, False), (torch.float32, 4, True),
+    (torch.float32, 2, False)])
+def test_row_alignment_check(dtype, offset, ok):
+    """The 16-byte row copies of the bf16 flash and the decode kernel need
+    every row to start 16-byte aligned."""
+    base = torch.zeros(4096, dtype=dtype)
+    t = base[offset:offset + 4 * 64].view(4, 64)
+    if ok:
+        _build.check_aligned(t, t[:, None].transpose(0, 1))
+    else:
+        with pytest.raises(ValueError):
+            _build.check_aligned(t)
+    with pytest.raises(ValueError):            # a row stride of 12 bytes
+        _build.check_aligned(torch.zeros(4, 6, dtype=torch.bfloat16)[:, :4])
