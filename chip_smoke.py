@@ -8,9 +8,11 @@ and then, failing on the first phase that goes wrong:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, the kernels' build time and ``ptxas`` register/spill lines,
-   and for each flash and decode kernel whether its SASS holds tensor-core
-   instructions (``HMMA``); the bf16 flash kernel must, and it and the
-   decode kernel must not spill;
+   and for each flash, decode and GEMM kernel whether its SASS holds
+   tensor-core instructions (``HMMA``, ``HGMMA``) and TMA loads
+   (``UTMALDG``); the bf16 flash kernel must hold HMMA, every bf16 GEMM
+   entry HGMMA and its TMA entries UTMALDG, and no redesigned kernel (bf16
+   flash, decode, both GEMMs) may spill;
 2. holds every kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at the sweep shapes of tests/test_kernels.py,
    in fp32 and bf16: the GEMM, decode and flash kernels at TinyLlama's
@@ -138,32 +140,47 @@ def host_call_ms(fn, reps: int = 30) -> float:
 
 
 # ---------------------------------------------------------------------------
-# 1. what the attention kernels compiled to
+# 1. what the attention and GEMM kernels compiled to
 # ---------------------------------------------------------------------------
 
-ATTN_KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_kernel")
-NO_SPILL = ("flash_mma_kernel", "decode_kernel")   # the redesigned ones
+KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_kernel",
+           "gemm_wgmma_kernel", "gemm_f32_kernel")
+# the redesigned ones, which must not spill
+NO_SPILL = ("flash_mma_kernel", "decode_kernel", "gemm_wgmma_kernel",
+            "gemm_f32_kernel")
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
 
 
 def _short(mangled: str) -> str:
-    """``decode_kernel<bf16,64>`` from a mangled entry name."""
-    m = re.search(r"(%s)I(.*?)EEv" % "|".join(ATTN_KERNELS), mangled)
+    """``decode_kernel<bf16,64>`` or ``gemm_wgmma_kernel<192,true,f32>``
+    from a mangled entry name."""
+    m = re.search(r"(%s)I(.*?)EEv" % "|".join(KERNELS), mangled)
     if not m:
         return mangled
-    args = m.group(2).replace("13__nv_bfloat16", "bf16,")
-    args = re.sub(r"Li(\d+)E?", r"\1", re.sub(r"^f", "f32,", args))
-    return f"{m.group(1)}<{args}>"
+    args = []
+    for t in re.finditer(r"Li(\d+)E|Lb([01])E|13__nv_bfloat16|f",
+                         m.group(2)):
+        if t.group(1):
+            args.append(t.group(1))
+        elif t.group(2) is not None:
+            args.append("true" if t.group(2) == "1" else "false")
+        else:
+            args.append("bf16" if t.group(0).startswith("13") else "f32")
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
-def attention_kernel_report() -> list:
-    """Registers and spills (``ptxas -v``) and whether the SASS holds
-    ``HMMA`` (``cuobjdump -sass``), for every flash and decode entry."""
+def kernel_report() -> list:
+    """Registers and spills (``ptxas -v``) and which of HMMA, HGMMA and
+    UTMALDG the SASS holds (``cuobjdump -sass``), for every flash, decode
+    and GEMM entry.  Fails where a redesigned kernel spills, where the bf16
+    flash kernel lacks HMMA, or where a bf16 GEMM entry lacks HGMMA (and,
+    on its TMA route, UTMALDG)."""
     from repro_torch.kernels import _build
     entries, cur = {}, None
     for ln in _build.ptxas_report().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            cur = m.group(1) if any(k in m.group(1) for k in ATTN_KERNELS) \
+            cur = m.group(1) if any(k in m.group(1) for k in KERNELS) \
                 else None
             if cur:
                 entries[cur] = {"name": _short(cur)}
@@ -182,28 +199,38 @@ def attention_kernel_report() -> list:
                           capture_output=True, text=True, timeout=600,
                           check=True).stdout
     fn = None
-    hmma = {}
+    ops = {}
     for ln in sass.splitlines():
         m = re.match(r"\s*Function : (\S+)", ln)
         if m:
             fn = m.group(1)
-            hmma.setdefault(fn, False)
-        elif fn and "HMMA" in ln:
-            hmma[fn] = True
+            ops.setdefault(fn, set())
+        elif fn:
+            ops[fn].update(op for op in SASS_OPS
+                           if re.search(r"\b%s\b" % op, ln))
     rows = []
     for mangled, e in sorted(entries.items(), key=lambda kv: kv[1]["name"]):
-        e["hmma"] = hmma.get(mangled)
+        for op in SASS_OPS:
+            e[op.lower()] = op in ops.get(mangled, ())
         log(f"  {e['name']}: {e.get('registers')} registers, spill "
             f"{e.get('spill_stores')}/{e.get('spill_loads')} bytes "
-            f"(stores/loads), HMMA in SASS: {e['hmma']}")
+            f"(stores/loads), in SASS: "
+            f"{[op for op in SASS_OPS if e[op.lower()]]}")
         rows.append(e)
     for e in rows:
         if any(e["name"].startswith(k) for k in NO_SPILL):
             assert e.get("spill_stores") == 0 and e.get("spill_loads") == 0, e
         if e["name"].startswith("flash_mma_kernel"):
             assert e["hmma"], e
-    assert sum(e["name"].startswith("flash_mma_kernel") for e in rows) == 5
-    assert sum(e["name"].startswith("decode_kernel") for e in rows) == 10
+        if e["name"].startswith("gemm_wgmma_kernel"):
+            assert e["hgmma"], e
+            if e["name"].split(",")[1] == "true":       # the TMA route
+                assert e["utmaldg"], e
+    count = {k: sum(e["name"].startswith(k + "<") for e in rows)
+             for k in KERNELS}
+    assert count["flash_mma_kernel"] == 5 and count["decode_kernel"] == 10 \
+        and count["gemm_wgmma_kernel"] == 8 \
+        and count["gemm_f32_kernel"] == 8, count
     return rows
 
 
@@ -230,39 +257,7 @@ def phase_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(7)
     log("phase 2: kernels against their plain versions")
 
-    # preempt/resume chain, tests/test_kernels.py tolerances
-    M = K = N = 512
-    a, b = randn((M, K), gen), randn((K, N), gen)
-    full = ref.gemm_ref(a, b)
-    for split in (1, 2, 3):
-        acc = torch.zeros((M, N), device=dev)
-        acc = gemm_partial(a, b, acc, 0, split, bk=128)
-        saved = acc.cpu()
-        acc = gemm_partial(a, b, saved.to(dev), split, 4, bk=128)
-        check_close(f"gemm_partial chain split {split}/4 fp32", acc, full,
-                    1e-2, 1e-4)
-    for (M, K, N, bm, bn, bk) in [(128, 128, 128, 128, 128, 128),
-                                  (256, 512, 128, 128, 128, 128),
-                                  (512, 256, 384, 128, 128, 128),
-                                  (128, 1024, 256, 64, 128, 256)]:
-        for dt, tol in ((torch.float32, 1e-3), (torch.bfloat16, 2e-2)):
-            a, b = randn((M, K), gen, dt), randn((K, N), gen, dt)
-            out = systolic_gemm(a, b, bm=bm, bn=bn, bk=bk)
-            assert out.dtype == dt
-            check_close(f"systolic_gemm {M}x{K}x{N} {dt}", out,
-                        ref.gemm_ref(a, b), tol * K ** 0.5, tol)
-    # TinyLlama width: activations (512, d_model) @ W1 (d_model, d_ff), bf16,
-    # preempted at 3 of 8 K-blocks.  bf16 products are exact in fp32; only
-    # the fp32 summation order differs, so the fp32 chain's tolerance holds.
-    a = randn((512, 2048), gen, torch.bfloat16)
-    w = randn((2048, 5632), gen, torch.bfloat16)
-    acc = gemm_partial(a, w, torch.zeros((512, 5632), device=dev), 0, 3,
-                       bk=256)
-    acc = gemm_partial(a, w, acc, 3, 8, bk=256)
-    want = ref.gemm_partial_ref(a, w, torch.zeros((512, 5632), device=dev),
-                                0, 8, 256)
-    check_close("gemm_partial 512x2048x5632 bf16 split 3/8", acc, want,
-                1e-2, 1e-4)
+    phase_gemm_kernels(dev, gen)
 
     # decode: main path (model layout, transposed cache view) and sweep
     for dt in (torch.float32, torch.bfloat16):
@@ -304,6 +299,105 @@ def phase_kernels(dev):
     phase_hybrid_kernels(dev, gen)
     phase_attention_edges(dev, gen)
     torch.cuda.synchronize()
+
+
+def _poisoned(a, b, k0, k1, bk):
+    """Copies of A and B whose columns / rows outside the K slice
+    [k0*bk, k1*bk) are NaN: a kernel that reads past its slice returns
+    NaN."""
+    a, b = a.clone(), b.clone()
+    a[:, :k0 * bk] = float("nan")
+    a[:, k1 * bk:] = float("nan")
+    b[:k0 * bk] = float("nan")
+    b[k1 * bk:] = float("nan")
+    return a, b
+
+
+def _routes_of(fn):
+    """(result, {route: launches}) of one call of ``fn``."""
+    from repro_torch.kernels import _build
+    before = dict(_build.GEMM_ROUTES)
+    out = fn()
+    return out, {k: v - before[k] for k, v in _build.GEMM_ROUTES.items()
+                 if v != before[k]}
+
+
+def phase_gemm_kernels(dev, gen):
+    """The checkpointable GEMM against its plain version: the preempt /
+    resume chains (fp32 and TinyLlama-width bf16), the sweep shapes, ragged
+    shapes in both dtypes on both bf16 routes, a random non-zero seed, K
+    slices whose neighbours are NaN, every call twice and bit-identical,
+    and the route each bf16 call took."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.systolic_gemm import gemm_partial, systolic_gemm
+    bf = torch.bfloat16
+
+    # preempt/resume chain, tests/test_kernels.py tolerances
+    M = K = N = 512
+    a, b = randn((M, K), gen), randn((K, N), gen)
+    full = ref.gemm_ref(a, b)
+    for split in (1, 2, 3):
+        acc = torch.zeros((M, N), device=dev)
+        acc = gemm_partial(a, b, acc, 0, split, bk=128)
+        saved = acc.cpu()
+        acc = gemm_partial(a, b, saved.to(dev), split, 4, bk=128)
+        check_close(f"gemm_partial chain split {split}/4 fp32", acc, full,
+                    1e-2, 1e-4)
+    for (M, K, N, bm, bn, bk) in [(128, 128, 128, 128, 128, 128),
+                                  (256, 512, 128, 128, 128, 128),
+                                  (512, 256, 384, 128, 128, 128),
+                                  (128, 1024, 256, 64, 128, 256),
+                                  (200, 100, 72, 200, 72, 100),
+                                  (192, 320, 136, 192, 136, 320)]:
+        for dt, tol in ((torch.float32, 1e-3), (bf, 2e-2)):
+            a, b = randn((M, K), gen, dt), randn((K, N), gen, dt)
+            out, routes = _routes_of(
+                lambda: systolic_gemm(a, b, bm=bm, bn=bn, bk=bk))
+            again = systolic_gemm(a, b, bm=bm, bn=bn, bk=bk)
+            assert out.dtype == dt and torch.equal(out, again), (M, K, N, dt)
+            # bf16 (200, 100, 72): a 200-byte row of A, which TMA cannot take
+            want = {torch.float32: "ffma", bf: "async" if (M, K, N) == (
+                200, 100, 72) else "tma"}[dt]
+            assert routes == {want: 1}, (M, K, N, dt, routes)
+            check_close(f"systolic_gemm {M}x{K}x{N} {dt} ({want}, twice, "
+                        "bit-identical)", out, ref.gemm_ref(a, b),
+                        tol * K ** 0.5, tol)
+    # TinyLlama width: activations (512, d_model) @ W1 (d_model, d_ff), bf16,
+    # preempted at 3 of 8 K-blocks.  bf16 products are exact in fp32; only
+    # the fp32 summation order differs, so the fp32 chain's tolerance holds.
+    # Each call sees NaN outside its K slice, so it must read only its slice.
+    a = randn((512, 2048), gen, bf)
+    w = randn((2048, 5632), gen, bf)
+    acc = torch.zeros((512, 5632), device=dev)
+    for k0, k1 in ((0, 3), (3, 8)):
+        ap, wp = _poisoned(a, w, k0, k1, 256)
+        acc, routes = _routes_of(lambda: gemm_partial(ap, wp, acc, k0, k1,
+                                                      bk=256))
+        assert routes == {"tma": 1}, routes
+    want = ref.gemm_partial_ref(a, w, torch.zeros((512, 5632), device=dev),
+                                0, 8, 256)
+    check_close("gemm_partial 512x2048x5632 bf16 split 3/8, NaN outside "
+                "each slice (tma)", acc, want, 1e-2, 1e-4)
+    # a random seed and NaN outside the slice, both dtypes, both bf16 routes
+    # (bk 100: a slice that starts 200 bytes into a bf16 row, which TMA
+    # cannot take) and fp32 4-byte copies (bk 50: 200 bytes into a row)
+    for dt, (M, N, bk, nk), route in [
+            (torch.float32, (512, 512, 128, 4), "ffma"),
+            (torch.float32, (192, 136, 50, 4), "ffma"),
+            (bf, (512, 512, 128, 4), "tma"), (bf, (192, 136, 320, 3), "tma"),
+            (bf, (200, 72, 100, 4), "async")]:
+        a, b = randn((M, bk * nk), gen, dt), randn((bk * nk, N), gen, dt)
+        seed = randn((M, N), gen)
+        ap, bp = _poisoned(a, b, 1, nk - 1, bk)
+        got, routes = _routes_of(lambda: gemm_partial(ap, bp, seed, 1, nk - 1,
+                                                      bk=bk))
+        again = gemm_partial(ap, bp, seed, 1, nk - 1, bk=bk)
+        assert routes == {route: 1} and torch.equal(got, again), \
+            (dt, M, N, bk, routes)
+        check_close(f"gemm_partial {M}x{bk * nk}x{N} {dt} bk {bk} K blocks "
+                    f"[1,{nk - 1}), random seed, NaN outside ({route}, twice,"
+                    " bit-identical)", got,
+                    ref.gemm_partial_ref(a, b, seed, 1, nk - 1, bk), 1e-2, 1e-4)
 
 
 def phase_hybrid_kernels(dev, gen):
@@ -732,12 +826,14 @@ def phase_gemm(dev):
 # ---------------------------------------------------------------------------
 
 # the redesigned rows' kernel times before their redesign, when flash ran
-# on FFMA and decode in two kernels (PERF.md's kernel table: this script's
-# phase 6 on an NVIDIA H100 80GB HBM3 at 700 W); printed beside the new
-# times, never in the kernels line
+# on FFMA, decode in two kernels and the GEMM on 64x64 tiles (FFMA for
+# fp32, WMMA for bf16) (PERF.md's kernel table: this script's phase 6 on
+# an NVIDIA H100 80GB HBM3 at 700 W); printed beside the new times, never
+# in the kernels line
 BEFORE_REDESIGN_MS = {"decode_attention": 0.0247, "flash_attention": 0.1891,
                       "decode_attention@recurrentgemma-2b": 0.0755,
-                      "flash_attention@recurrentgemma-2b": 1.7546}
+                      "flash_attention@recurrentgemma-2b": 1.7546,
+                      "gemm_partial": 0.0716, "systolic_gemm": 0.0131}
 
 
 def _bound(flops, nbytes, peak):
@@ -754,7 +850,8 @@ def phase_timing(dev, launches, card, power):
     from repro_torch.kernels.decode_attention import decode_attention_tpu
     from repro_torch.kernels.flash_attention import flash_attention_tpu
     from repro_torch.kernels.rglru_scan import rglru_scan_tpu
-    from repro_torch.kernels.systolic_gemm import gemm_partial, systolic_gemm
+    from repro_torch.kernels.systolic_gemm import (gemm_partial, gemm_plan,
+                                                   systolic_gemm)
     F = torch.nn.functional
     log("phase 6: kernel times at the main path's shapes (device time: "
         "median of 30 CUDA-graph replays of 10 calls, CUDA events)")
@@ -827,7 +924,12 @@ def phase_timing(dev, launches, card, power):
             f"causal{note}")
 
     # gemm_partial: the preemptible GEMM's resume call, K blocks [3, 8) of
-    # 1024^3 fp32 with bk 128 (K range 640)
+    # 1024^3 fp32 with bk 128 (K range 640); the HI product 128^3
+    for shape in ((1024, 1024, 640), (128, 128, 128)):
+        plan = gemm_plan(*shape, torch.float32)
+        log(f"  gemm plan M, N, K = {shape} fp32: {plan.route}, tile "
+            f"{plan.bm}x{plan.bn}, {plan.blocks} blocks")
+        RECORD.setdefault("gemm_plans", {})[str(shape)] = str(plan)
     M = K = N = 1024
     A, B = randn((M, K), gen), randn((K, N), gen)
     acc = randn((M, N), gen)
@@ -870,20 +972,34 @@ def phase_timing(dev, launches, card, power):
         2 * Bs * S * D, 4 * (3 * Bs * S * D + Bs * D), PEAK_FP32, 1e-5,
         f"a, b {Bs}x{S}x{D} fp32, h0 {Bs}x{D}")
 
-    # the same GEMM kernel at TinyLlama's FFN width (not a main-path call)
+    # the bf16 GEMM at TinyLlama's FFN width (not main-path calls): the full
+    # product W1, and the resume call of the split-3/8 chain of phase 2
     a = randn((512, 2048), gen, bf)
     w = randn((2048, 5632), gen, bf)
-    extra = {"name": "systolic_gemm@tinyllama_w1",
-             "shape": "512x2048x5632 bf16 -> bf16",
-             "ms": cuda_time_ms(lambda: systolic_gemm(a, w)),
-             "library_ms": cuda_time_ms(lambda: torch.matmul(a, w)),
-             "bound_ms": _bound(2 * 512 * 2048 * 5632,
-                                2 * (512 * 2048 + 2048 * 5632 + 512 * 5632),
-                                PEAK_BF16)[0],
+    acc = randn((512, 5632), gen)
+    extras = []
+    for name, kern, lib, lib_name, flops, nbytes in [
+            ("systolic_gemm@tinyllama_w1", lambda: systolic_gemm(a, w),
+             lambda: torch.matmul(a, w), "torch.matmul",
+             2 * 512 * 2048 * 5632,
+             2 * (512 * 2048 + 2048 * 5632 + 512 * 5632)),
+            ("gemm_partial@tinyllama_bf16",
+             lambda: gemm_partial(a, w, acc, 3, 8, bk=256),
+             lambda: torch.addmm(acc, a[:, 768:], w[768:],
+                                 out_dtype=torch.float32),
+             "torch.addmm(out_dtype=float32)", 2 * 512 * 1280 * 5632,
+             2 * (512 * 1280 + 1280 * 5632) + 4 * 2 * 512 * 5632)]:
+        _, routes = _routes_of(kern)
+        assert routes == {"tma": 1}, (name, routes)
+        e = {"name": name, "route": "tma", "library_call": lib_name,
+             "ms": cuda_time_ms(kern), "library_ms": cuda_time_ms(lib),
+             "bound_ms": _bound(flops, nbytes, PEAK_BF16)[0],
+             "bound_by": _bound(flops, nbytes, PEAK_BF16)[1],
              "card": card, "power_limit": power}
-    log(f"  {extra['name']}: kernel {extra['ms']:.4f} ms, torch.matmul "
-        f"{extra['library_ms']:.4f} ms, bound {extra['bound_ms']:.5f} ms")
-    extras = [extra]
+        log(f"  {name} (TMA route): kernel {e['ms']:.4f} ms, {lib_name} "
+            f"{e['library_ms']:.4f} ms ({e['ms'] / e['library_ms']:.2f}x), "
+            f"bound {e['bound_ms']:.5f} ms ({e['bound_by']})")
+        extras.append(e)
     # decode later in a request (not main-path rows): TinyLlama's cache
     # nearly full, the hybrid's ring full (128 splits, two combine levels)
     for name, Hq, Hkv, dh, S, pos in [("decode_attention@pos1023", 32, 4, 64,
@@ -929,7 +1045,7 @@ def main() -> int:
             log("  ptxas: " + ln.strip())
     RECORD.update(card=card, power_limit=power, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=build_s,
-                  attention_kernels=attention_kernel_report())
+                  kernel_report=kernel_report())
 
     phase_kernels(dev)
     from repro_torch.configs import get_config

@@ -35,14 +35,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"gemm_partial": 0, "systolic_gemm": 0,
                             "decode_attention": 0, "flash_attention": 0,
                             "rglru_scan": 0}
+# the GEMM's launches by route (systolic_gemm.gemm_plan): "tma" and
+# "async" are the bf16 wgmma kernel's two producers, "ffma" the fp32 kernel
+GEMM_ROUTES: Dict[str, int] = {"tma": 0, "async": 0, "ffma": 0}
 
 # C entry points: name -> argtypes (c_void_p for every pointer and the
 # stream, c_int / c_longlong for sizes and strides)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # in_dtype, out_dtype, A, B, acc_in, C, M, N, K, lda, ldb, ldacc, ldc,
-    # stream
-    "repro_gemm": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P],
+    # the GEMM's two kernels, routed by systolic_gemm.gemm_plan.  fp32
+    # (gemm.cu, FFMA): out_dtype, bm, bn, vec, A, B, acc_in, C, M, N, K,
+    # lda, ldb, ldacc, ldc, stream.  bf16 (gemm_wgmma.cu, wgmma): out_dtype,
+    # tma, bn, A, B, acc_in, C, M, N, K, lda, ldb, ldacc, ldc, stream
+    "repro_gemm_f32": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _L, _L,
+                       _L, _L, _P],
+    "repro_gemm_bf16": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L,
+                        _L, _P],
     # dtype, q, k, v, out, part, counters, B, Hkv, G, dh, pos, chunk,
     # n_split, n_grp, q strides (b, h), k strides (b, h, s), v strides
     # (b, h, s), scale, stream
@@ -183,5 +191,6 @@ def check_aligned(*tensors: torch.Tensor) -> None:
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, GEMM_ROUTES):
+        for k in counts:
+            counts[k] = 0

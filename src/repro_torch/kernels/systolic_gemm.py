@@ -7,16 +7,25 @@ product ("step_wise_mvout") and resume later, which gives preemption
     acc = gemm_partial(A, B, acc, k0, k1)   # preempt here, acc -> host
     acc = gemm_partial(A, B, acc, k1, nK)   # resume
 
-On a CUDA tensor both functions launch ``csrc/gemm.cu`` (one kernel:
-``systolic_gemm`` seeds its accumulator with zeros and casts on the way
-out, ``gemm_partial`` seeds it from ``acc`` and writes it back in fp32).
+On a CUDA tensor both functions launch one kernel, chosen by
+:func:`gemm_plan`: bf16 operands go to ``csrc/gemm_wgmma.cu`` (wgmma on
+the tensor cores, fed by TMA, or by the same kernel's ``async`` producer
+where a base or row stride is not a multiple of 16 bytes), fp32 operands
+to ``csrc/gemm.cu`` (FFMA, pipelined by cp.async; fp32 stays off TF32).
+``systolic_gemm`` seeds the accumulator with zeros and casts on the way
+out, ``gemm_partial`` seeds it from ``acc`` and writes it back in fp32.
 On a CPU tensor they run the plain version in ``kernels/ref.py``.  The
 signatures, asserts, block clamping (``min(b*, dim)``) and output dtypes
 are the reference's; ``bm``/``bn`` name the reference's VMEM tile and the
-CUDA kernel tiles on its own, while ``bk`` keeps its meaning as the
-preemption unit.
+kernels tile on their own, while ``bk`` keeps its meaning as the
+preemption unit: ``gemm_partial`` hands the kernel the K slice
+[k_begin*bk, k_end*bk) as views, and the bf16 kernel's TMA descriptors
+describe that slice, never the whole matrix.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -26,8 +35,80 @@ DEFAULT_BM = 256
 DEFAULT_BN = 256
 DEFAULT_BK = 256
 
+N_SM = 132                      # the H100 SXM's SMs
+# fp32 (FFMA) block tiles, largest first: gemm.cu instantiates these
+FP32_TILES = ((128, 64), (32, 32))
+# bf16 (wgmma) block tiles: 128 rows (two consumer warpgroups) x BN;
+# gemm_wgmma.cu instantiates these
+BF16_BM = 128
+BF16_BNS = (128, 192)
 
-def _launch_gemm(a, b, acc_in, out, K: int):
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """How one call runs: ``route`` is "tma" or "async" (bf16, the wgmma
+    kernel's two producers) or "ffma" (fp32); ``vec`` says whether the
+    fp32 kernel copies 16 bytes at a time (False for bf16); ``grid`` is
+    (N/bn, M/bm) blocks.  No plan splits K: the preemption unit bk already
+    cuts it, and the 128^3 product fills 16 SMs with small tiles."""
+    route: str
+    bm: int
+    bn: int
+    vec: bool
+    grid: Tuple[int, int]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def _aligned16(ptr: int, ld: int, itemsize: int) -> bool:
+    return ptr % 16 == 0 and (ld * itemsize) % 16 == 0
+
+
+def gemm_plan(M: int, N: int, K: int, dtype, *, a_ptr: int = 0,
+              b_ptr: int = 0, lda: int = None, ldb: int = None,
+              n_sm: int = N_SM) -> GemmPlan:
+    """The route and tile of C (M, N) = A (M, K) @ B (K, N), where A and B
+    are the K slice the kernel multiplies, starting at ``a_ptr`` and
+    ``b_ptr`` with row strides ``lda`` and ``ldb`` (elements; default
+    contiguous).
+
+    bf16: the "tma" route where both bases and row strides are multiples
+    of 16 bytes (what a TMA descriptor needs), else "async"; BN is 128 or
+    192, the one with the fewest waves x BN (the time of a wave grows with
+    BN), the smaller on a tie: 512 x 5632 takes 192 (120 blocks, one wave)
+    over 128 (176 blocks, two waves).
+    fp32: 128x64 where that gives at least 3/4 of ``n_sm`` blocks (1024^2:
+    128 blocks, one wave), else 32x32 (128^3: 16 blocks); 16-byte copies
+    (``vec``) where both rows start 16-byte aligned and K and N are
+    multiples of 4."""
+    lda = K if lda is None else lda
+    ldb = N if ldb is None else ldb
+    if dtype == torch.bfloat16:
+        tma = _aligned16(a_ptr, lda, 2) and _aligned16(b_ptr, ldb, 2)
+        rows = _cdiv(M, BF16_BM)
+        bn = min(BF16_BNS, key=lambda bn: (
+            _cdiv(rows * _cdiv(N, bn), n_sm) * bn, bn))
+        return GemmPlan("tma" if tma else "async", BF16_BM, bn, False,
+                        (_cdiv(N, bn), rows))
+    if dtype == torch.float32:
+        vec = (_aligned16(a_ptr, lda, 4) and _aligned16(b_ptr, ldb, 4)
+               and K % 4 == 0 and N % 4 == 0)
+        for bm, bn in FP32_TILES:
+            if _cdiv(M, bm) * _cdiv(N, bn) * 4 >= 3 * n_sm:
+                break
+        return GemmPlan("ffma", bm, bn, vec, (_cdiv(N, bn), _cdiv(M, bm)))
+    raise TypeError(f"gemm kernel takes float32 or bfloat16, got {dtype}")
+
+
+def _launch_gemm(a, b, acc_in, out) -> GemmPlan:
+    """Launch the plan's kernel on the K slice ``a`` (M, K), ``b`` (K, N);
+    returns the plan."""
     for t in (a, b):
         if t.stride(-1) != 1:
             raise ValueError("gemm kernel needs unit inner stride")
@@ -40,15 +121,31 @@ def _launch_gemm(a, b, acc_in, out, K: int):
                          "A's device")
     if b.device != a.device or out.device != a.device:
         raise ValueError("gemm operands on different devices")
-    M, N = out.shape
+    M, K = a.shape
+    N = out.shape[1]
+    plan = gemm_plan(
+        M, N, K, a.dtype, a_ptr=a.data_ptr(), b_ptr=b.data_ptr(),
+        lda=a.stride(0), ldb=b.stride(0),
+        n_sm=torch.cuda.get_device_properties(a.device).multi_processor_count)
+    acc_ptr = acc_in.data_ptr() if acc_in is not None else None
+    ldacc = acc_in.stride(0) if acc_in is not None else 0
     lib = _build.lib()
-    err = lib.repro_gemm(
-        _build.dtype_code(a), _build.dtype_code(out), a.data_ptr(),
-        b.data_ptr(), acc_in.data_ptr() if acc_in is not None else None,
-        out.data_ptr(), M, N, K, a.stride(0), b.stride(0),
-        acc_in.stride(0) if acc_in is not None else 0, out.stride(0),
-        _build.stream_ptr(a))
-    _build.check(err, "repro_gemm")
+    if plan.route == "ffma":
+        err = lib.repro_gemm_f32(
+            _build.dtype_code(out), plan.bm, plan.bn, int(plan.vec),
+            a.data_ptr(), b.data_ptr(), acc_ptr, out.data_ptr(), M, N, K,
+            a.stride(0), b.stride(0), ldacc, out.stride(0),
+            _build.stream_ptr(a))
+        _build.check(err, "repro_gemm_f32")
+    else:
+        err = lib.repro_gemm_bf16(
+            _build.dtype_code(out), int(plan.route == "tma"), plan.bn,
+            a.data_ptr(), b.data_ptr(), acc_ptr, out.data_ptr(), M, N, K,
+            a.stride(0), b.stride(0), ldacc, out.stride(0),
+            _build.stream_ptr(a))
+        _build.check(err, "repro_gemm_bf16")
+    _build.GEMM_ROUTES[plan.route] += 1
+    return plan
 
 
 def systolic_gemm(a, b, *, bm: int = DEFAULT_BM, bn: int = DEFAULT_BN,
@@ -63,7 +160,7 @@ def systolic_gemm(a, b, *, bm: int = DEFAULT_BM, bn: int = DEFAULT_BN,
     if a.device.type == "cpu":
         return ref.gemm_ref(a, b, out_dtype)
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    _launch_gemm(a, b, None, out, K)
+    _launch_gemm(a, b, None, out)
     _build.LAUNCHES["systolic_gemm"] += 1
     return out
 
@@ -89,6 +186,6 @@ def gemm_partial(a, b, acc, k_begin: int, k_end: int, *,
     a_sl = a[:, k_begin * bk: k_end * bk]
     b_sl = b[k_begin * bk: k_end * bk]
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    _launch_gemm(a_sl, b_sl, acc, out, (k_end - k_begin) * bk)
+    _launch_gemm(a_sl, b_sl, acc, out)
     _build.LAUNCHES["gemm_partial"] += 1
     return out

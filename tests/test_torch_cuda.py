@@ -54,6 +54,90 @@ def test_systolic_gemm(gen, M, K, N, dtype, tol):
     assert _err(out, want) <= tol * K ** 0.5 + tol * float(want.abs().max())
 
 
+def _poisoned(a, b, k0, k1, bk):
+    """A and B with NaN outside the K slice [k0*bk, k1*bk)."""
+    a, b = a.clone(), b.clone()
+    a[:, :k0 * bk] = float("nan")
+    a[:, k1 * bk:] = float("nan")
+    b[:k0 * bk] = float("nan")
+    b[k1 * bk:] = float("nan")
+    return a, b
+
+
+def _one_route(fn):
+    """fn()'s result and the one GEMM route it launched."""
+    before = dict(_build.GEMM_ROUTES)
+    out = fn()
+    moved = [k for k, v in _build.GEMM_ROUTES.items() if v != before[k]]
+    assert len(moved) == 1 and _build.GEMM_ROUTES[moved[0]] == \
+        before[moved[0]] + 1, moved
+    return out, moved[0]
+
+
+@pytest.mark.parametrize("dtype,M,N,bk,nk,route", [
+    (torch.float32, 512, 512, 128, 4, "ffma"),
+    (torch.float32, 192, 136, 50, 4, "ffma"),      # 4-byte copies
+    (torch.bfloat16, 192, 136, 128, 4, "tma"),
+    (torch.bfloat16, 200, 72, 100, 4, "async"),    # slice 200 B into a row
+    (torch.bfloat16, 512, 5632, 256, 8, "tma"),    # TinyLlama width
+])
+def test_gemm_partial_reads_only_its_slice_from_a_random_seed(
+        gen, dtype, M, N, bk, nk, route):
+    """NaN outside the K slice, a random fp32 seed: the result is finite,
+    equals the plain version on the clean operands, and repeats bit for
+    bit."""
+    a, b = _randn(gen, M, nk * bk, dtype=dtype), _randn(gen, nk * bk, N,
+                                                       dtype=dtype)
+    seed = _randn(gen, M, N)
+    k0, k1 = 1, nk - 1
+    ap, bp = _poisoned(a, b, k0, k1, bk)
+    out, took = _one_route(lambda: gemm_partial(ap, bp, seed, k0, k1, bk=bk))
+    assert took == route
+    assert torch.equal(out, gemm_partial(ap, bp, seed, k0, k1, bk=bk))
+    want = ref.gemm_partial_ref(a, b, seed, k0, k1, bk)
+    assert bool(torch.isfinite(out).all())
+    assert _err(out, want) <= 1e-2 + 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("M,K,N", [(200, 100, 72), (192, 320, 136),
+                                   (130, 33, 70), (512, 2048, 5632)])
+def test_systolic_gemm_ragged_routes_and_repeats(gen, M, K, N, dtype, tol):
+    """Ragged M, N and K on both kernels and both bf16 routes; a second
+    call gives the same bits."""
+    a, b = _randn(gen, M, K, dtype=dtype), _randn(gen, K, N, dtype=dtype)
+    out, took = _one_route(lambda: systolic_gemm(a, b, bm=M, bn=N, bk=K))
+    tma_ok = K % 8 == 0 and N % 8 == 0      # 16-byte rows of A and B
+    assert took == ("ffma" if dtype == torch.float32
+                    else "tma" if tma_ok else "async")
+    assert torch.equal(out, systolic_gemm(a, b, bm=M, bn=N, bk=K))
+    want = ref.gemm_ref(a, b)
+    assert _err(out, want) <= tol * K ** 0.5 + tol * float(want.abs().max())
+
+
+def test_bf16_gemm_in_a_cuda_graph_equals_the_eager_call(gen):
+    """The TMA descriptors travel as kernel parameters, so a captured
+    resume call replays."""
+    bf = torch.bfloat16
+    a, w = _randn(gen, 512, 2048, dtype=bf), _randn(gen, 2048, 5632, dtype=bf)
+    acc = _randn(gen, 512, 5632)
+    want = gemm_partial(a, w, acc, 3, 8, bk=256)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gemm_partial(a, w, acc, 3, 8, bk=256)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gemm_partial(a, w, acc, 3, 8, bk=256)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
 @pytest.mark.parametrize("pos", [0, 63, 64, 200])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
                                        (torch.bfloat16, 2e-2)])
