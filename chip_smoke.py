@@ -8,15 +8,17 @@ and then, failing on the first phase that goes wrong:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, the kernels' build time and ``ptxas`` register/spill lines,
-   and for each flash, decode and GEMM kernel whether its SASS holds
-   tensor-core instructions (``HMMA``, ``HGMMA``) and TMA loads
-   (``UTMALDG``); the bf16 flash kernel must hold HMMA, every bf16 GEMM
-   entry HGMMA and its TMA entries UTMALDG, and no redesigned kernel (bf16
-   flash, decode, both GEMMs) may spill;
+   and for each flash, decode, GEMM and RG-LRU scan kernel whether its
+   SASS holds tensor-core instructions (``HMMA``, ``HGMMA``), TMA loads
+   (``UTMALDG``) and cp.async copies (``LDGSTS``); the bf16 flash kernel
+   must hold HMMA, every bf16 GEMM entry HGMMA and its TMA entries
+   UTMALDG, every scan entry LDGSTS, and no redesigned kernel (bf16 flash,
+   decode, both GEMMs, the scan) may spill;
 2. holds every kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at the sweep shapes of tests/test_kernels.py,
    in fp32 and bf16: the GEMM, decode and flash kernels at TinyLlama's
-   shapes, the RG-LRU scan, flash with a 2048 window at dh 256 and decode
+   shapes, the RG-LRU scan (bit for bit, every instantiation of its plan
+   on both copy routes), flash with a 2048 window at dh 256 and decode
    at dh 256 / G 10 on a 2048-slot ring at recurrentgemma-2b's; the bf16
    flash kernel at every head dim it instantiates; decode at the edges of
    its split plan's chunks, each call made twice and required to repeat
@@ -37,7 +39,8 @@ and then, failing on the first phase that goes wrong:
 5. runs the preemptible GEMM (``repro_torch.launch.preemptible_gemm``);
 6. times each kernel at its main path's shapes against its plain version,
    one PyTorch library call (where one computes the same function) and
-   its bound on the card.
+   its bound on the card, and the scan plan's alternatives (channels x
+   steps x stages) at the hybrid's 512-token prefill.
 
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.  Everything printed is also written to
@@ -47,6 +50,7 @@ CUDA is absent or the port's sources are not beside it.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import re
 import statistics
@@ -144,11 +148,11 @@ def host_call_ms(fn, reps: int = 30) -> float:
 # ---------------------------------------------------------------------------
 
 KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_kernel",
-           "gemm_wgmma_kernel", "gemm_f32_kernel")
+           "gemm_wgmma_kernel", "gemm_f32_kernel", "rglru_kernel")
 # the redesigned ones, which must not spill
 NO_SPILL = ("flash_mma_kernel", "decode_kernel", "gemm_wgmma_kernel",
-            "gemm_f32_kernel")
-SASS_OPS = ("HMMA", "HGMMA", "UTMALDG")
+            "gemm_f32_kernel", "rglru_kernel")
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG", "LDGSTS")
 
 
 def _short(mangled: str) -> str:
@@ -170,12 +174,13 @@ def _short(mangled: str) -> str:
 
 
 def kernel_report() -> list:
-    """Registers and spills (``ptxas -v``) and which of HMMA, HGMMA and
-    UTMALDG the SASS holds (``cuobjdump -sass``), for every flash, decode
-    and GEMM entry.  Fails where a redesigned kernel spills, where the bf16
-    flash kernel lacks HMMA, or where a bf16 GEMM entry lacks HGMMA (and,
-    on its TMA route, UTMALDG)."""
-    from repro_torch.kernels import _build
+    """Registers and spills (``ptxas -v``) and which of HMMA, HGMMA,
+    UTMALDG and LDGSTS the SASS holds (``cuobjdump -sass``), for every
+    flash, decode, GEMM and scan entry.  Fails where a redesigned kernel
+    spills, where the bf16 flash kernel lacks HMMA, where a bf16 GEMM entry
+    lacks HGMMA (and, on its TMA route, UTMALDG), or where a scan entry
+    lacks LDGSTS (its cp.async ring)."""
+    from repro_torch.kernels import _build, rglru_scan
     entries, cur = {}, None
     for ln in _build.ptxas_report().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -226,11 +231,16 @@ def kernel_report() -> list:
             assert e["hgmma"], e
             if e["name"].split(",")[1] == "true":       # the TMA route
                 assert e["utmaldg"], e
+        if e["name"].startswith("rglru_kernel"):
+            assert e["ldgsts"], e
     count = {k: sum(e["name"].startswith(k + "<") for e in rows)
              for k in KERNELS}
+    scan_entries = 2 * len(rglru_scan.CHANNELS) * len(rglru_scan.STEPS) \
+        * len(rglru_scan.STAGES)                       # x the two routes
     assert count["flash_mma_kernel"] == 5 and count["decode_kernel"] == 10 \
         and count["gemm_wgmma_kernel"] == 8 \
-        and count["gemm_f32_kernel"] == 8, count
+        and count["gemm_f32_kernel"] == 8 \
+        and count["rglru_kernel"] == scan_entries, count
     return rows
 
 
@@ -406,15 +416,7 @@ def phase_hybrid_kernels(dev, gen):
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_tpu
     from repro_torch.kernels.flash_attention import flash_attention_tpu
-    from repro_torch.kernels.rglru_scan import rglru_scan_tpu
-    # RG-LRU: the test_rglru_kernel_sweep shapes and the 512-token prefill
-    # of recurrentgemma-2b.  The kernel rounds a*h and +b as the plain
-    # version does (no FMA), so the atol 1e-5 of the sweep holds with room.
-    for (B, S, D) in [(2, 128, 256), (1, 64, 512), (1, 512, 2560)]:
-        a = torch.rand((B, S, D), generator=gen, device=dev) * 0.599 + 0.4
-        b, h0 = randn((B, S, D), gen), randn((B, D), gen)
-        check_close(f"rglru_scan B{B} S{S} D{D}", rglru_scan_tpu(a, b, h0),
-                    ref.rglru_scan_ref(a, b, h0), 1e-5)
+    phase_scan_kernel(dev, gen)
     # local attention of the hybrid's prefill at a length where the window
     # really cuts the band: Hq 10 / Hkv 1, dh 256, S 2560, window 2048
     for dt in (torch.float32, torch.bfloat16):
@@ -441,6 +443,48 @@ def phase_hybrid_kernels(dev, gen):
                         f"{dt}", decode_attention_tpu(q, kc, vc, pos),
                         ref.decode_attention_ref(q, kc, vc, pos),
                         ATTN_TOL[dt])
+
+
+def phase_scan_kernel(dev, gen):
+    """The RG-LRU scan bit for bit (max error 0) against its plain version:
+    the test_rglru_kernel_sweep shapes, recurrentgemma-2b's 512- and
+    8-token prefills, batch 2 at one step, ragged D (100, and 37 on the
+    4-byte route); each call twice and bit-identical; at the 512-token
+    prefill and the ragged shapes every instantiation of the plan (channels
+    x steps x stages) on both copy routes (16-byte ones where D % 4 == 0).
+    The kernel rounds a*h and +b as the plain version does (no FMA) and
+    walks S in order, so nothing less than equality is right."""
+    from repro_torch.kernels import ref, rglru_scan
+    from repro_torch.kernels.rglru_scan import (launch_plan, rglru_scan_tpu,
+                                                scan_plan)
+    every = list(itertools.product(rglru_scan.CHANNELS, rglru_scan.STEPS,
+                                   rglru_scan.STAGES, ("cp16", "cp4")))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (B, S, D) in [(2, 128, 256), (1, 64, 512), (1, 512, 2560),
+                      (1, 8, 2560), (2, 1, 2560), (1, 37, 100), (1, 33, 37)]:
+        a = torch.rand((B, S, D), generator=gen, device=dev) * 0.599 + 0.4
+        b, h0 = randn((B, S, D), gen), randn((B, D), gen)
+        want = ref.rglru_scan_ref(a, b, h0)
+        plan = scan_plan(B, S, D, a_ptr=a.data_ptr(), b_ptr=b.data_ptr(),
+                         n_sm=n_sm)
+        out = rglru_scan_tpu(a, b, h0)
+        assert torch.equal(out, rglru_scan_tpu(a, b, h0)), (B, S, D)
+        check_close(f"rglru_scan B{B} S{S} D{D} (C {plan.channels}, T "
+                    f"{plan.steps}, {plan.stages} stages, {plan.route}, "
+                    f"{plan.blocks} blocks; twice, bit-identical)", out,
+                    want, 0.0)
+        if (S, D) not in ((512, 2560), (37, 100), (33, 37)):
+            continue
+        for c, t, st, route in every:
+            if route == "cp16" and plan.route == "cp4":
+                continue
+            alt = dataclasses.replace(plan, channels=c, steps=t, stages=st,
+                                      route=route)
+            got = launch_plan(a, b, h0, alt)
+            assert torch.equal(got, want), (alt, max_err(got, want))
+        log(f"  rglru_scan B{B} S{S} D{D}: every instantiation on "
+            f"{'both routes' if plan.route == 'cp16' else 'the cp4 route'}"
+            " bit-equal")
 
 
 def phase_attention_edges(dev, gen):
@@ -826,14 +870,15 @@ def phase_gemm(dev):
 # ---------------------------------------------------------------------------
 
 # the redesigned rows' kernel times before their redesign, when flash ran
-# on FFMA, decode in two kernels and the GEMM on 64x64 tiles (FFMA for
-# fp32, WMMA for bf16) (PERF.md's kernel table: this script's phase 6 on
-# an NVIDIA H100 80GB HBM3 at 700 W); printed beside the new times, never
-# in the kernels line
+# on FFMA, decode in two kernels, the GEMM on 64x64 tiles (FFMA for fp32,
+# WMMA for bf16) and the scan one thread per channel (PERF.md's kernel
+# table: this script's phase 6 on an NVIDIA H100 80GB HBM3 at 700 W);
+# printed beside the new times, never in the kernels line
 BEFORE_REDESIGN_MS = {"decode_attention": 0.0247, "flash_attention": 0.1891,
                       "decode_attention@recurrentgemma-2b": 0.0755,
                       "flash_attention@recurrentgemma-2b": 1.7546,
-                      "gemm_partial": 0.0716, "systolic_gemm": 0.0131}
+                      "gemm_partial": 0.0716, "systolic_gemm": 0.0131,
+                      "rglru_scan": 0.0227}
 
 
 def _bound(flops, nbytes, peak):
@@ -849,7 +894,9 @@ def phase_timing(dev, launches, card, power):
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_tpu
     from repro_torch.kernels.flash_attention import flash_attention_tpu
-    from repro_torch.kernels.rglru_scan import rglru_scan_tpu
+    from repro_torch.kernels import rglru_scan
+    from repro_torch.kernels.rglru_scan import (launch_plan, rglru_scan_tpu,
+                                                scan_plan)
     from repro_torch.kernels.systolic_gemm import (gemm_partial, gemm_plan,
                                                    systolic_gemm)
     F = torch.nn.functional
@@ -964,13 +1011,35 @@ def phase_timing(dev, launches, card, power):
     Bs, S, D = 1, 512, 2560
     a = torch.rand((Bs, S, D), generator=gen, device=dev) * 0.599 + 0.4
     b, h0 = randn((Bs, S, D), gen), randn((Bs, D), gen)
-    # no single PyTorch call computes a linear recurrence: library_ms null
+    plan = scan_plan(
+        Bs, S, D, a_ptr=a.data_ptr(), b_ptr=b.data_ptr(),
+        n_sm=torch.cuda.get_device_properties(dev).multi_processor_count)
+    log(f"  rglru plan B, S, D = {(Bs, S, D)}: C {plan.channels}, T "
+        f"{plan.steps}, {plan.stages} stages, {plan.route}, {plan.blocks} "
+        f"blocks, {plan.smem_bytes} bytes of shared memory")
+    RECORD["scan_plan"] = str(plan)
+    # no single PyTorch call computes a linear recurrence: library_ms null;
+    # the kernel equals the plain version bit for bit: tolerance 0
     row("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "src/repro/kernels/rglru_scan.py:42",
         lambda: rglru_scan_tpu(a, b, h0),
         lambda: ref.rglru_scan_ref(a, b, h0), None,
-        2 * Bs * S * D, 4 * (3 * Bs * S * D + Bs * D), PEAK_FP32, 1e-5,
+        2 * Bs * S * D, 4 * (3 * Bs * S * D + Bs * D), PEAK_FP32, 0.0,
         f"a, b {Bs}x{S}x{D} fp32, h0 {Bs}x{D}")
+    # the plan's alternatives at the same call (not main-path launches)
+    sweep = []
+    for c, t, st in itertools.product(rglru_scan.CHANNELS, rglru_scan.STEPS,
+                                      rglru_scan.STAGES):
+        alt = dataclasses.replace(plan, channels=c, steps=t, stages=st)
+        e = {"channels": c, "steps": t, "stages": st, "route": alt.route,
+             "blocks": alt.blocks, "plan": alt == plan,
+             "ms": cuda_time_ms(lambda: launch_plan(a, b, h0, alt))}
+        sweep.append(e)
+        log(f"  scan sweep C {c:2d} T {t:3d} stages {st} ({alt.route}, "
+            f"{alt.blocks} blocks): {e['ms']:.4f} ms"
+            f"{'  <- the plan' if e['plan'] else ''}")
+    RECORD["scan_sweep"] = {"card": card, "power_limit": power,
+                            "shape": [Bs, S, D], "rows": sweep}
 
     # the bf16 GEMM at TinyLlama's FFN width (not main-path calls): the full
     # product W1, and the resume call of the split-3/8 chain of phase 2
@@ -1017,6 +1086,19 @@ def phase_timing(dev, launches, card, power):
              "card": card, "power_limit": power}
         log(f"  {name}: kernel {e['ms']:.4f} ms, SDPA "
             f"{e['library_ms']:.4f} ms")
+        extras.append(e)
+    # the scan at the hybrid's 8-token prefill (launch-bound) and at a
+    # 2560-token one (past the 50 MB L2: bytes-bound), beside the main row
+    for S in (8, 2560):
+        a = torch.rand((1, S, D), generator=gen, device=dev) * 0.599 + 0.4
+        b, h0 = randn((1, S, D), gen), randn((1, D), gen)
+        bound_ms, bound_by = _bound(2 * S * D, 4 * (3 * S * D + D), PEAK_FP32)
+        e = {"name": f"rglru_scan@S{S}", "shape": f"a, b 1x{S}x{D} fp32",
+             "ms": cuda_time_ms(lambda: rglru_scan_tpu(a, b, h0)),
+             "bound_ms": bound_ms, "bound_by": bound_by, "card": card,
+             "power_limit": power}
+        log(f"  {e['name']}: kernel {e['ms']:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by})")
         extras.append(e)
     RECORD["kernels"] = rows
     RECORD["extra_timings"] = extras

@@ -8,7 +8,9 @@ flash_attention   — causal flash attention with true tile skipping and an
 decode_attention  — flash-decoding for the KV cache (decode) in one
                     launch: split blocks sized to fill the card, the
                     combine done by the last block of each KV head
-rglru_scan        — RG-LRU linear recurrence along S (hybrid prefill)
+rglru_scan        — RG-LRU linear recurrence along S (hybrid prefill):
+                    blocks of a few channels, one chain lane each, fed by
+                    a cp.async ring; bit-equal to the plain version
 
 csrc/ holds the CUDA sources, built at first CUDA use by _build.py;
 ops.py = the public wrappers; ref.py = the plain PyTorch versions, which

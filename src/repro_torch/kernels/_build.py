@@ -67,8 +67,9 @@ _SIGNATURES = {
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
                                    _L, _L, _L, _L, ctypes.c_float, _P],
-    # a, b, h0, out, B, S, D, stream
-    "repro_rglru_scan": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # a, b, h0, out, B, S, D, channels, steps, stages, vec, stream (the
+    # plan of rglru_scan.scan_plan)
+    "repro_rglru_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

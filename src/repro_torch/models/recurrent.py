@@ -3,10 +3,11 @@ reference's ``models/recurrent.py``; the xLSTM cells arrive with their
 family).
 
 The prefill recurrence runs the RG-LRU scan kernel (``ops.rglru``): on a
-CUDA tensor the hand-written kernel, on a CPU tensor its plain version.
-The reference runs an associative scan with ``h0`` folded into the first
-step instead; both compute h_t = a_t h_{t-1} + b_t, in other orders of
-rounding.  The decode step stays plain torch, as the reference's has no
+CUDA tensor the hand-written kernel, on a CPU tensor its plain version;
+both walk S in order and round a*h and +b apart, so they agree bit for
+bit.  The reference runs an associative scan with ``h0`` folded into the
+first step instead; both compute h_t = a_t h_{t-1} + b_t, in other orders
+of rounding.  The decode step stays plain torch, as the reference's has no
 kernel.
 """
 from __future__ import annotations

@@ -160,15 +160,68 @@ def test_flash_attention_ragged_and_views(gen, S, dh, causal):
     assert _err(out, ref.flash_attention_ref(q, k, v, causal=causal)) <= 5e-5
 
 
-@pytest.mark.parametrize("B,S,D", [(2, 128, 256), (1, 64, 512),
-                                   (1, 512, 2560), (1, 37, 100)])
-def test_rglru_scan(gen, B, S, D):
-    """No FMA contraction in the kernel: equal to the plain version."""
+def _scan_inputs(gen, B, S, D):
     a = torch.rand((B, S, D), generator=gen, device="cuda") * 0.599 + 0.4
-    b, h0 = _randn(gen, B, S, D), _randn(gen, B, D)
+    return a, _randn(gen, B, S, D), _randn(gen, B, D)
+
+
+@pytest.mark.parametrize("B,S,D", [(2, 128, 256), (1, 64, 512),
+                                   (1, 512, 2560), (1, 37, 100),
+                                   (1, 8, 2560), (2, 1, 2560),
+                                   (1, 2560, 2560), (1, 33, 37)])
+def test_rglru_scan(gen, B, S, D):
+    """No FMA contraction and S in order in the kernel: equal to the plain
+    version bit for bit ((1, 33, 37) on the 4-byte copies)."""
+    a, b, h0 = _scan_inputs(gen, B, S, D)
     out = rglru_scan_tpu(a, b, h0, block_s=S, block_d=D)
     assert out.shape == (B, S, D) and out.dtype == torch.float32
-    assert _err(out, ref.rglru_scan_ref(a, b, h0)) <= 1e-5
+    assert torch.equal(out, ref.rglru_scan_ref(a, b, h0))
+
+
+@pytest.mark.parametrize("B,S,D", [(1, 512, 2560), (1, 37, 100),
+                                   (1, 33, 37)])
+def test_rglru_scan_every_instantiation_is_bit_equal(gen, B, S, D):
+    """Every block width, tile and ring depth the kernel instantiates, on
+    both copy routes where D allows 16-byte copies."""
+    import dataclasses
+    import itertools
+
+    from repro_torch.kernels import rglru_scan
+    a, b, h0 = _scan_inputs(gen, B, S, D)
+    want = ref.rglru_scan_ref(a, b, h0)
+    plan = rglru_scan.scan_plan(B, S, D, a_ptr=a.data_ptr(),
+                                b_ptr=b.data_ptr())
+    routes = ("cp16", "cp4") if plan.route == "cp16" else ("cp4",)
+    for c, t, st, route in itertools.product(
+            rglru_scan.CHANNELS, rglru_scan.STEPS, rglru_scan.STAGES, routes):
+        alt = dataclasses.replace(plan, channels=c, steps=t, stages=st,
+                                  route=route)
+        assert torch.equal(rglru_scan.launch_plan(a, b, h0, alt), want), alt
+
+
+def test_rglru_scan_repeats_bit_for_bit(gen):
+    a, b, h0 = _scan_inputs(gen, 1, 512, 2560)
+    first = rglru_scan_tpu(a, b, h0)
+    for _ in range(3):
+        assert torch.equal(rglru_scan_tpu(a, b, h0), first)
+
+
+def test_rglru_scan_in_a_cuda_graph_equals_the_eager_call(gen):
+    a, b, h0 = _scan_inputs(gen, 1, 512, 2560)
+    want = rglru_scan_tpu(a, b, h0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rglru_scan_tpu(a, b, h0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rglru_scan_tpu(a, b, h0)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("S,window", [(2560, 2048), (300, 64), (100, 1)])
@@ -315,3 +368,6 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
                        h0.bfloat16())
     with pytest.raises(ValueError):                # not contiguous
         rglru_scan_tpu(a.transpose(1, 2), a.transpose(1, 2), h0)
+    z = torch.zeros((65536, 1, 1), device="cuda")
+    with pytest.raises(ValueError):                # more rows than grid y
+        rglru_scan_tpu(z, z, z[:, 0])
