@@ -40,7 +40,20 @@ and then, failing on the first phase that goes wrong:
 6. times each kernel at its main path's shapes against its plain version,
    one PyTorch library call (where one computes the same function) and
    its bound on the card, and the scan plan's alternatives (channels x
-   steps x stages) at the hybrid's 512-token prefill.
+   steps x stages) at the hybrid's 512-token prefill;
+7. (run after 5, before 6) open-loop serving: (a) the 16 points of the
+   reference's fig12 smoke grid through ``repro_torch.serving.fig12``,
+   twice, byte-identical rows, the reference's gate on the pooled
+   saturated poisson cells (host arithmetic on the virtual clock, no
+   device); (b) full-width TinyLlama-1.1B in bf16 on one lane serving
+   24 LO + 8 HI Poisson arrivals in wall-clock time through
+   ``repro_torch.launch.serve.run_traffic_real`` under MESC and
+   non-preemptive serving, the LO rate 1.2 x the lane's measured
+   capacity: every request finishes, the launches match the layer
+   pattern, MESC saves contexts, every HI and every saved request's
+   tokens equal a solo replay of its own prompt, and MESC's HI p99 TTFT
+   lies below non-preemptive serving's; each policy's SLO row is printed
+   as a line of its own.
 
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.  Everything printed is also written to
@@ -50,6 +63,7 @@ CUDA is absent or the port's sources are not beside it.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
 import json
 import re
@@ -866,6 +880,232 @@ def phase_gemm(dev):
 
 
 # ---------------------------------------------------------------------------
+# 7. open-loop serving (runs after phase 5, before the timing of phase 6)
+# ---------------------------------------------------------------------------
+
+FIG12_HI_DEADLINE_S = 0.5
+# the real-model drive's workload: fig12's smoke sizes (24 LO + 8 HI) at
+# its saturated LO load, the reference CLI's token counts, 8-token prompts
+OPEN_LOOP_LO_LOAD = 1.2
+OPEN_LOOP_N_LO, OPEN_LOOP_N_HI = 24, 8
+OPEN_LOOP_LO_TOKENS, OPEN_LOOP_HI_TOKENS = 24, 6
+OPEN_LOOP_PROMPT_LEN, OPEN_LOOP_MAX_LEN = 8, 64
+
+
+def fig12_smoke_grid() -> list:
+    """The 16 points of the reference's ``benchmarks/fig12_serving_slo.py
+    --smoke`` (``sweep(2, n_lo=24, n_hi=8)``): {mesc, np} x {poisson,
+    heavy_tail} x lo_load {0.7, 1.2} x set {0, 1}, two lanes."""
+    from repro_torch.serving.fig12 import SERVING_SEMANTICS_VERSION
+    return [dict(policy=pol, arrivals=arr, lo_load=load, lanes=2,
+                 set_index=s, n_lo=24, n_hi=8,
+                 hi_deadline_s=FIG12_HI_DEADLINE_S,
+                 serving_v=SERVING_SEMANTICS_VERSION)
+            for pol in ("mesc", "np") for arr in ("poisson", "heavy_tail")
+            for load in (0.7, 1.2) for s in range(2)]
+
+
+def pool_fig12_cell(cell) -> dict:
+    """Pool the SLO rows of one (policy, arrivals, lo_load) cell as the
+    reference's fig12 benchmark script does (``_cell_stats``): HI tails
+    from the pooled per-request latencies, miss rate and goodput from the
+    counts."""
+    from repro_torch.serving.slo import nearest_rank
+    lat = sorted(v for r in cell for v in r["hi_latencies_s"])
+    n_hi = sum(r["hi_n"] for r in cell)
+    missed = sum(round(r["hi_miss_rate"] * r["hi_n"]) for r in cell)
+    return dict(
+        hi_p50=nearest_rank(lat, 0.50),
+        hi_p99=nearest_rank(lat, 0.99),
+        hi_p999=nearest_rank(lat, 0.999),
+        hi_miss=missed / n_hi if n_hi else None,
+        lo_p50=(sorted(r["lo_p50_latency_s"] for r in cell)
+                [len(cell) // 2]),
+        goodput=sum(r["goodput_rps"] for r in cell) / len(cell),
+        preempts=sum(r["hi_preemptions"] + r["lo_preemptions"]
+                     for r in cell),
+    )
+
+
+def fig12_gate(rows) -> dict:
+    """The pooled table of the smoke grid and the reference's ``--gate``:
+    at the saturated poisson cell MESC's pooled HI p99 and p999 lie below
+    non-preemptive serving's and its HI miss rate is no higher."""
+    cells = {}
+    for r in rows:
+        cells.setdefault((r["policy"], r["arrivals"], r["lo_load"]),
+                         []).append(r)
+    table = {k: pool_fig12_cell(v) for k, v in sorted(cells.items())}
+    mesc, np_ = table[("mesc", "poisson", 1.2)], table[("np", "poisson", 1.2)]
+    ok = (mesc["hi_p99"] < np_["hi_p99"] and mesc["hi_p999"] < np_["hi_p999"]
+          and mesc["hi_miss"] <= np_["hi_miss"])
+    return {"table": table, "ok": ok,
+            "sat_hi_p99_np/mesc": np_["hi_p99"] / max(mesc["hi_p99"], 1e-9)}
+
+
+def phase_fig12() -> dict:
+    """(a) The fig12 smoke grid through the port, twice: the two passes'
+    rows must be byte-identical (the reference's replay gate) and pass the
+    reference's gate.  Host arithmetic on the virtual clock: no device."""
+    from repro_torch.serving.fig12 import simulate_fig12_point
+    log("  (a) fig12 smoke grid, 16 points x 2 passes (host arithmetic on "
+        "the virtual clock; no device)")
+    t0 = time.perf_counter()
+    dumps = []
+    for _ in range(2):
+        rows = [{**item, **simulate_fig12_point(**item)}
+                for item in fig12_smoke_grid()]
+        dumps.append(json.dumps(rows, sort_keys=True, separators=(",", ":")))
+    host_s = time.perf_counter() - t0
+    assert dumps[0] == dumps[1], "fig12 rows differ between two passes"
+    gate = fig12_gate(rows)
+    log("  policy,arrivals,lo_load,hi_p50,hi_p99,hi_p999,hi_miss,lo_p50,"
+        "goodput_rps")
+    for (pol, arr, load), c in gate["table"].items():
+        log(f"  {pol},{arr},{load},{c['hi_p50']:.4f},{c['hi_p99']:.4f},"
+            f"{c['hi_p999']:.4f},{c['hi_miss']:.3f},{c['lo_p50']:.2f},"
+            f"{c['goodput']:.2f}")
+    log(f"  sat_hi_p99_np/mesc={gate['sat_hi_p99_np/mesc']:.1f}x; replay "
+        f"byte-identical ({len(dumps[0])} bytes); gate "
+        f"{'OK' if gate['ok'] else 'FAILED'}; {host_s:.1f} s of host time")
+    assert gate["ok"], gate["table"]
+    sha = hashlib.sha256(dumps[0].encode()).hexdigest()
+    log(f"  rows sha256 {sha}")
+    return {"host_s": host_s, "rows_sha256": sha,
+            "sat_hi_p99_np_over_mesc": gate["sat_hi_p99_np/mesc"],
+            "table": {",".join(map(str, k)): v
+                      for k, v in gate["table"].items()}}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _solo(cfg, params, rc, prompt, n, max_len) -> tuple:
+    """(tokens, wall s) of one request served alone, non-preemptively."""
+    from repro_torch.core.scheduler import Policy
+    from repro_torch.core.serving import MESCServer, Request
+    from repro_torch.core.task import Crit
+    srv = MESCServer(cfg, params, policy=Policy.non_preemptive(), rc=rc,
+                     max_len=max_len)
+    dev = params["embed"].device
+    _sync(dev)
+    t0 = time.perf_counter()
+    srv.submit(Request(rid=0, priority=0, prompt=np.asarray(prompt),
+                       max_new_tokens=n, crit=Crit.LO))
+    srv.run()
+    _sync(dev)
+    return srv.requests[0].generated, time.perf_counter() - t0
+
+
+def phase_open_loop(dev, arch="tinyllama-1.1b") -> dict:
+    """Open-loop serving: (a) the fig12 smoke grid on the host, (b) the
+    real-model open-loop drive of ``launch.serve.run_traffic_real`` on the
+    card: full-width ``arch`` in bf16 on one lane serves Poisson LO and HI
+    arrivals under MESC and under non-preemptive serving, the LO rate at
+    ``OPEN_LOOP_LO_LOAD`` x the lane's measured capacity.  One resident
+    cache slot, so that a HI arrival saves the running LO request's cache
+    to the host (with two slots one lane never fills its pool);
+    non-preemptive serving never holds two caches, so the slot count does
+    not change it."""
+    from repro_torch.configs.base import _pattern_for
+    from repro_torch.core.scheduler import Policy
+    from repro_torch.core.task import Crit
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.serving import Poisson, build_workload, slo_summary
+    log("phase 7: open-loop serving (after phase 5, before phase 6's "
+        "timing)")
+    t_phase = time.perf_counter()
+    out = {"fig12": phase_fig12()}
+
+    cfg, params, rc = serve.load_model(arch, dev)
+    n_attn = _pattern_for(cfg).count("attn")
+    rng = np.random.default_rng(1)
+    # one warm-up request, then the median of three: the first request
+    # after a stretch of host-only work runs slower (on an H100 80GB HBM3,
+    # ~35 ms a step against ~21 ms a step inside a busy open-loop run)
+    alone = [_solo(cfg, params, rc,
+                   rng.integers(0, cfg.vocab, OPEN_LOOP_PROMPT_LEN),
+                   OPEN_LOOP_LO_TOKENS, OPEN_LOOP_MAX_LEN)[1]
+             for _ in range(4)]
+    one_s = statistics.median(alone[1:])
+    capacity = 1.0 / one_s
+    lo_rate = OPEN_LOOP_LO_LOAD * capacity
+    hi_rate = lo_rate * OPEN_LOOP_N_HI / OPEN_LOOP_N_LO
+    workload = build_workload(seed=0, lo_process=Poisson(lo_rate),
+                              hi_process=Poisson(hi_rate),
+                              n_lo=OPEN_LOOP_N_LO, n_hi=OPEN_LOOP_N_HI,
+                              lo_tokens=OPEN_LOOP_LO_TOKENS,
+                              hi_tokens=OPEN_LOOP_HI_TOKENS)
+    dtype = str(rc.compute_dtype).replace("torch.", "")
+    log(f"  (b) {arch} ({cfg.n_layers} layers), {dtype} on {dev}, one lane, "
+        f"one resident slot: a {OPEN_LOOP_LO_TOKENS}-token LO request "
+        f"alone takes {one_s * 1e3:.1f} ms (median of "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in alone[1:])}; warm-up "
+        f"{alone[0] * 1e3:.1f}), capacity {capacity:.3f} req/s; LO "
+        f"{lo_rate:.3f} req/s ({OPEN_LOOP_LO_LOAD} x), HI {hi_rate:.3f} "
+        f"req/s; {OPEN_LOOP_N_LO} LO + {OPEN_LOOP_N_HI} HI, horizon "
+        f"{workload[-1].t:.2f} s")
+    out.update(capacity_rps=capacity, one_request_s=alone, lo_rate=lo_rate,
+               hi_rate=hi_rate, runs={})
+    for name, policy in (("mesc", Policy.mesc()),
+                         ("np", Policy.non_preemptive())):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        reqs = serve.run_traffic_real(cfg, params, policy, workload, rc=rc,
+                                      max_len=OPEN_LOOP_MAX_LEN,
+                                      prompt_len=OPEN_LOOP_PROMPT_LEN,
+                                      resident_slots=1)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        assert sorted(reqs) == [s.rid for s in workload], name
+        for r in reqs.values():
+            assert r.done and len(r.generated) == r.max_new_tokens, r.rid
+        steps = sum(len(r.generated) for r in reqs.values()) \
+            + serve.WARMUP_TOKENS
+        prefills = len(reqs) + 1                   # and the warm-up's
+        if dev.type == "cuda":
+            assert launches["decode_attention"] == n_attn * steps, launches
+            assert launches["flash_attention"] == n_attn * prefills, \
+                launches
+        row = slo_summary(reqs.values(), hi_deadline_s=FIG12_HI_DEADLINE_S)
+        replayed = [r for r in reqs.values()
+                    if r.crit == Crit.HI or r.saves > 0]
+        for r in replayed:
+            toks, _ = _solo(cfg, params, rc, r.prompt, r.max_new_tokens,
+                            OPEN_LOOP_MAX_LEN)
+            assert toks == r.generated, (f"{name}: rid {r.rid} (saves "
+                                         f"{r.saves}) differs from its "
+                                         "solo replay")
+        keep = ("hi_p50_ttft_s", "hi_p99_ttft_s", "hi_p50_latency_s",
+                "hi_p99_latency_s", "lo_p50_ttft_s", "lo_p99_ttft_s",
+                "lo_p50_latency_s", "lo_p99_latency_s", "hi_miss_rate",
+                "goodput_rps", "hi_saves", "lo_saves", "hi_preemptions",
+                "lo_preemptions", "makespan_s")
+        slo = {k: row[k] for k in keep}
+        slo.update(policy=name, wall_s=wall, decode_steps=steps,
+                   prefills=prefills, launches=launches,
+                   replayed=len(replayed))
+        log(json.dumps({"open_loop": slo}))
+        out["runs"][name] = dict(slo, row=row)
+    mesc, base = out["runs"]["mesc"], out["runs"]["np"]
+    assert mesc["hi_saves"] + mesc["lo_saves"] > 0, "MESC saved no context"
+    assert base["hi_saves"] + base["lo_saves"] == 0
+    assert mesc["hi_p99_ttft_s"] < base["hi_p99_ttft_s"], (mesc, base)
+    out["wall_s"] = time.perf_counter() - t_phase
+    ratio = base["hi_p99_ttft_s"] / mesc["hi_p99_ttft_s"]
+    log(f"  HI p99 TTFT np/mesc {ratio:.1f}x; HI and saved requests equal "
+        f"their solo replays; phase {out['wall_s']:.1f} s")
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 6. timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1140,6 +1380,7 @@ def main() -> int:
     dense_launches = phase_dense_serving(dev)
     hybrid_launches = phase_hybrid_serving(dev)
     gemm_launches = phase_gemm(dev)
+    RECORD["open_loop"] = phase_open_loop(dev)
     launches = {
         "decode_attention": dense_launches["decode_attention"],
         "flash_attention": dense_launches["flash_attention"],

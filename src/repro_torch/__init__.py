@@ -6,10 +6,14 @@ and names and runs on one NVIDIA Hopper card:
   runtime.device  — device resolution (CUDA unless the CPU is asked for)
   configs         — own copies of ArchConfig and the TinyLlama configs
   core            — Crit / Mode / Policy and the MESC serving lane
+  scenarios       — CRN splitmix64 draws and the fault scenarios
+  serving         — open-loop traffic, the admission front door, the
+                    virtual clock and service model, SLO rows, fig12
   kernels         — hand-written sm_90a CUDA kernels, each beside its
                     plain PyTorch version (kernels/ref.py)
   models          — the dense GQA decoder (prefill / decode_step)
-  launch          — the batch serving drive and the preemptible GEMM
+  launch          — the serving drive (batch and open-loop) and the
+                    preemptible GEMM
 
 Nothing here imports ``jax`` or ``repro``.
 """

@@ -34,6 +34,10 @@ class Policy:
         return Policy(preemption="none", name="np")
 
     @staticmethod
+    def limited() -> "Policy":
+        return Policy(preemption="operator", name="lp")
+
+    @staticmethod
     def amc(preemption: str = "instruction") -> "Policy":
         return Policy(preemption=preemption, drop_lo_in_hi=True,
                       name=f"amc-{preemption}")

@@ -90,10 +90,25 @@ def _key() -> str:
     return h.hexdigest()[:16]
 
 
+def _env_cuda_home() -> Optional[Path]:
+    """``CUDA_HOME``, validated: ``None`` when unset or empty, else a
+    directory that holds ``bin/nvcc``.  A set value without a compiler
+    raises a ``ValueError`` naming the variable."""
+    raw = os.environ.get("CUDA_HOME")
+    if raw is None or not raw.strip():
+        return None
+    if not (Path(raw) / "bin" / "nvcc").exists():
+        raise ValueError(f"CUDA_HOME={raw!r} holds no bin/nvcc; point "
+                         "CUDA_HOME at a CUDA toolkit or unset it")
+    return Path(raw)
+
+
 def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").exists():
-            return str(Path(cand) / "bin" / "nvcc")
+    home = _env_cuda_home()
+    if home is not None:
+        return str(home / "bin" / "nvcc")
+    if (Path("/usr/local/cuda") / "bin" / "nvcc").exists():
+        return "/usr/local/cuda/bin/nvcc"
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError("nvcc not found (set CUDA_HOME); the port's "

@@ -1,1 +1,2 @@
-"""Entry points of the port: the batch serving drive and the preemptible GEMM."""
+"""Entry points of the port: the serving drive (batch and open-loop)
+and the preemptible GEMM."""

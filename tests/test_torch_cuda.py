@@ -371,3 +371,33 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     z = torch.zeros((65536, 1, 1), device="cuda")
     with pytest.raises(ValueError):                # more rows than grid y
         rglru_scan_tpu(z, z, z[:, 0])
+
+
+def test_open_loop_drive_matches_solo_replays_on_the_card(gen):
+    """A short open-loop run on the card (tinyllama-1.1b-smoke, bf16, one
+    resident slot): every request finishes, and the tokens of every HI
+    request and every saved request equal a solo replay of its prompt."""
+    from repro_torch.core.scheduler import Policy
+    from repro_torch.core.serving import MESCServer, Request
+    from repro_torch.core.task import Crit
+    from repro_torch.launch import serve
+    from repro_torch.serving import Poisson, build_workload
+    cfg, params, rc = serve.load_model("tinyllama-1.1b-smoke", "cuda")
+    wl = build_workload(seed=0, lo_process=Poisson(40.0),
+                        hi_process=Poisson(20.0), n_lo=6, n_hi=3,
+                        lo_tokens=12, hi_tokens=3)
+    _build.reset_launches()
+    got = serve.run_traffic_real(cfg, params, Policy.mesc(), wl, rc=rc,
+                                 resident_slots=1)
+    steps = sum(len(r.generated) for r in got.values()) + serve.WARMUP_TOKENS
+    assert _build.LAUNCHES["decode_attention"] == cfg.n_layers * steps
+    assert _build.LAUNCHES["flash_attention"] == cfg.n_layers * (len(wl) + 1)
+    for r in got.values():
+        assert r.done and len(r.generated) == r.max_new_tokens
+        if r.crit == Crit.HI or r.saves:
+            solo = MESCServer(cfg, params, policy=Policy.non_preemptive(),
+                              rc=rc)
+            solo.submit(Request(rid=0, priority=0, prompt=r.prompt,
+                                max_new_tokens=r.max_new_tokens,
+                                crit=Crit.LO))
+            assert solo.run()[0].generated == r.generated, r.rid

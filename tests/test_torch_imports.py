@@ -35,7 +35,14 @@ def test_every_port_module_is_found():
                  "repro_torch.models.recurrent",
                  "repro_torch.launch.serve",
                  "repro_torch.launch.preemptible_gemm",
-                 "repro_torch.runtime.device"):
+                 "repro_torch.runtime.device",
+                 "repro_torch.core.taskgen",
+                 "repro_torch.scenarios", "repro_torch.scenarios.crn",
+                 "repro_torch.scenarios.scenario",
+                 "repro_torch.serving", "repro_torch.serving.clock",
+                 "repro_torch.serving.traffic", "repro_torch.serving.slo",
+                 "repro_torch.serving.frontend",
+                 "repro_torch.serving.fig12"):
         assert want in mods
 
 
@@ -105,3 +112,18 @@ def test_kernel_build_key_covers_every_source():
     assert _build._key() == _build._key()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == ROOT / "build" / "repro_torch_kernels"
+
+
+def test_cuda_home_without_nvcc_raises_naming_the_variable(monkeypatch,
+                                                         tmp_path):
+    from repro_torch.kernels import _build
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(ValueError, match="CUDA_HOME"):
+        _build._nvcc()
+    (tmp_path / "bin").mkdir()
+    (tmp_path / "bin" / "nvcc").write_text("")
+    assert _build._nvcc() == str(tmp_path / "bin" / "nvcc")
+    monkeypatch.setenv("CUDA_HOME", "  ")
+    assert _build._env_cuda_home() is None
+    monkeypatch.delenv("CUDA_HOME")
+    assert _build._env_cuda_home() is None

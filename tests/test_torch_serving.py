@@ -238,7 +238,10 @@ def test_heuristics_and_mode_severity_are_the_reference_tables():
     assert serving.HEURISTICS == tuple(J_HEURISTICS)
     assert {m.value: v for m, v in scheduler.MODE_SEVERITY.items()} \
         == {m.value: v for m, v in j_scheduler.MODE_SEVERITY.items()}
-    assert scheduler.Policy.amc().name == j_scheduler.Policy.amc().name
+    for make in ("mesc", "non_preemptive", "limited", "amc"):
+        assert dataclasses.asdict(getattr(scheduler.Policy, make)()) \
+            == dataclasses.asdict(getattr(j_scheduler.Policy, make)())
+    assert scheduler.Policy.limited().name == "lp"
     with pytest.raises(ValueError):
         serving.MultiLaneServer(None, None, heuristic="best_fit")
 
@@ -270,8 +273,69 @@ def test_batch_drive_on_the_cpu(policy, lanes):
     assert set(summary) == {"HI", "LO"}
 
 
+@pytest.mark.parametrize("lanes,slots", [(1, 1), (2, 1), (2, 3)])
+def test_resident_slots_size_every_lane(lanes, slots):
+    """Both drives give each lane ``resident_slots`` resident cache slots,
+    with one lane and with several."""
+    from repro_torch.launch import serve as tserve
+    cfg, params, rc = tserve.load_model(ARCH, "cpu")
+    srv = tserve._server(cfg, params, scheduler.Policy.mesc(), lanes,
+                         "crit_aware", rc, 32, slots)
+    assert srv.arena.total_slots == lanes * slots
+    assert srv.arena.quotas == [slots] * lanes
+
+
 def test_preemptible_gemm_on_the_cpu():
     from repro_torch.launch import preemptible_gemm
     out = preemptible_gemm.run("cpu", M=96, K=256, N=64, bk=32, split=3)
     assert out["nk"] == 8 and out["acc_bytes"] == 96 * 64 * 4
     assert out["max_abs_err"] < 1e-3 and out["hi_max_abs_err"] < 1e-4
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arrivals", "poisson", "--virtual"],
+    ["--arrivals", "heavy_tail", "--virtual", "--lanes", "2"],
+], ids=["poisson", "heavy_tail-lanes2"])
+def test_open_loop_cli_prints_the_reference_lines(argv, monkeypatch, capsys):
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve as tserve
+    monkeypatch.setattr("sys.argv", ["serve"] + argv)
+    jserve.main()
+    want = capsys.readouterr().out
+    monkeypatch.setattr("sys.argv", ["serve"] + argv)
+    tserve.main()
+    got = capsys.readouterr().out
+    assert got == want
+    assert "mesc" in got and "np/mesc" in got
+
+
+@pytest.mark.parametrize("policy,slots", [("mesc", 2), ("mesc", 1),
+                                          ("np", 2)])
+def test_open_loop_real_drive_on_the_cpu(policy, slots):
+    """run_traffic_real serves a CRN workload in wall-clock time: every
+    request finishes, the front door conserves requests, and each
+    request's tokens equal the reference server's on that request's own
+    prompt served alone, with the same parameters."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.serving import Poisson, build_workload
+    sides = _sides()
+    t = sides["torch"]
+    pol = scheduler.Policy.mesc() if policy == "mesc" \
+        else scheduler.Policy.non_preemptive()
+    wl = build_workload(seed=0, lo_process=Poisson(40.0),
+                        hi_process=Poisson(20.0), n_lo=4, n_hi=2,
+                        lo_tokens=8, hi_tokens=3)
+    got = tserve.run_traffic_real(t.cfg, t.params, pol, wl, rc=CPU_RC,
+                                  resident_slots=slots)
+    assert sorted(got) == [s.rid for s in wl]
+    assert all(r.done and len(r.generated) == r.max_new_tokens
+               for r in got.values())
+    j = sides["jax"]
+    ref = j.serving.MESCServer(j.cfg, j.params,
+                               policy=j.Policy.non_preemptive(), max_len=64)
+    for rid, r in sorted(got.items()):
+        ref.submit(j.serving.Request(rid=rid, priority=0, prompt=r.prompt,
+                                     max_new_tokens=r.max_new_tokens,
+                                     crit=j.Crit.LO))
+        ref.run()
+        assert r.generated == ref.requests[rid].generated, rid
