@@ -53,7 +53,18 @@ and then, failing on the first phase that goes wrong:
    pattern, MESC saves contexts, every HI and every saved request's
    tokens equal a solo replay of its own prompt, and MESC's HI p99 TTFT
    lies below non-preemptive serving's; each policy's SLO row is printed
-   as a line of its own.
+   as a line of its own;
+8. (run after 7, before 6) the lockstep simulation engine,
+   ``repro_torch.core.simulator_jit.simulate_jbatch``, in CUDA graphs:
+   the smoke corpus (sampled and nominal), the mixed corpus under mesc,
+   np, lp and amc-instruction and the smoke corpus under ``faults@0.7``,
+   each row set equal to its pinned digest of the JAX package's rows
+   (the smoke corpus's also to the port's own CPU rows); then
+   benchmarks/perf_sim.py's 512-point FULL corpus (duration 2e8) twice,
+   equal to its pin, with steps, graph replays, host syncs, retried
+   points, wall time and points/s on a ``{"lockstep": ...}`` line per
+   run; one graph replay is profiled (kernels and card time per step,
+   idle share, eager steps, the step's bytes bound).
 
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.  Everything printed is also written to
@@ -1106,6 +1117,227 @@ def phase_open_loop(dev, arch="tinyllama-1.1b") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 8. the lockstep simulation engine (runs after 7, before the timing of 6)
+# ---------------------------------------------------------------------------
+
+# the reference's corpora: tests/harness.py's fig8_corpus (the smoke
+# corpus) and mixed_corpus, and benchmarks/perf_sim.py's FULL corpus (512
+# MESC points over the fig8 utilisation band, duration 2e8)
+SIM_SMOKE = dict(utils=(0.7, 0.9), n_sets=16)
+SIM_FULL = dict(utils=(0.6, 0.7, 0.8, 0.9), n_sets=128)
+SIM_MIXED_SIZES = (3, 10, 6, 13)
+SIM_DURATION, SIM_FULL_DURATION = 2e7, 2e8
+# sha256 (simulator_jit.metrics_digest: every field of every row, floats
+# as float.hex) of the JAX package's simulate_jbatch rows for each case,
+# computed on the CPU; tests/test_torch_simulator_jit.py holds the port
+# and the reference to the same pins
+SIM_PINS = {
+    "smoke/sampled":
+        "8bde19b7d2ecdaa21b97fa4538daa5e344ad18b767a5e39670a9aa563cf89eab",
+    "smoke/nominal":
+        "b7c5d7057606188c639f5f49b724680265cdc4e404db00ea4ad5204ca18cc275",
+    "mixed/mesc":
+        "a205a02e72f87dd7efd6ae14590980e86ce901e50cb6f7eea0a04290078701de",
+    "mixed/np":
+        "b3bd8723778f0c71c59d80846bdf93a7c5084bcf227b803c68daed062bb3ac16",
+    "mixed/lp":
+        "ae6a6ba6390c7a6fa393a38f703883bed99c8d569603e7ffa5fb933eb6285779",
+    "mixed/amc-instruction":
+        "8510053a797a38d00b96995274240d667a07fda07a2e5c668d55ca9eb191b27c",
+    "smoke/faults@0.7":
+        "ffc0807f60c9d2f40745595d20fffc3c9fe9de2625ee926184393576ffd0171e",
+    "full/sampled":
+        "922debb2f9c064a4e420b51b0b878ddbf9a7c0216bd0c702e05a7b2af11ce1b1",
+}
+
+
+def sim_library() -> dict:
+    """The workload library without the ``arch:`` programs (the
+    reference's ``cached_library("sim")``)."""
+    from repro_torch.core.program import workload_library
+    return {k: v for k, v in workload_library().items()
+            if not k.startswith("arch:")}
+
+
+def sim_corpus(lib, utils, n_sets, n_tasks=10) -> tuple:
+    """fig8-style corpus: ``n_sets`` UUnifast sets per utilisation, set s
+    from seed s, run with seed s."""
+    from repro_torch.core.taskgen import generate_taskset
+    tasksets, seeds = [], []
+    for u in utils:
+        for s in range(n_sets):
+            tasksets.append(generate_taskset(u, seed=s, n_tasks=n_tasks,
+                                             programs=lib))
+            seeds.append(s)
+    return tasksets, seeds
+
+
+def sim_cases(lib) -> list:
+    """(pin name, tasksets, seeds, policy, keywords) of the small cases."""
+    from repro_torch.core.scheduler import Policy
+    from repro_torch.core.taskgen import generate_taskset
+    smoke = sim_corpus(lib, **SIM_SMOKE)
+    mixed = ([generate_taskset(0.9, seed=s, n_tasks=n, programs=lib)
+              for s, n in enumerate(SIM_MIXED_SIZES)],
+             list(range(len(SIM_MIXED_SIZES))))
+    cases = [(f"smoke/{prof}", *smoke, Policy.mesc(),
+              dict(demand_profile=prof)) for prof in ("sampled", "nominal")]
+    cases += [(f"mixed/{p.name}", *mixed, p, {})
+              for p in (Policy.mesc(), Policy.non_preemptive(),
+                        Policy.limited(), Policy.amc())]
+    cases.append(("smoke/faults@0.7", *smoke, Policy.mesc(),
+                  dict(scenario="faults@0.7")))
+    return cases
+
+
+def profile_lockstep(runner, state, eager_steps: int = 16) -> dict:
+    """One graph replay from the batch's first state: its device time
+    (CUDA events), its kernels and their busy time (torch.profiler), and
+    the same steps run eagerly with a host sync per step."""
+    from torch.profiler import ProfilerActivity, profile
+    S = runner.steps
+    runner._load(*state)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    runner.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    replay_ms = start.elapsed_time(end)
+    runner._load(*state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner.graph.replay()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_kernels = sum(e.count for e in kernels)
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=_device_us, reverse=True)[:6]
+    # the traced replay's own span on the card, first kernel start to
+    # last kernel end (tracing slows kernels, so the untraced replay's
+    # time is not the denominator)
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    span_ms = (max(t.end for t in spans) - min(t.start for t in spans)) \
+        / 1e3 if spans else None
+    runner._load(*state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(eager_steps):
+        runner.step(runner.tb, runner.sc, runner.c, runner.k)
+        torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / eager_steps
+    # the least HBM traffic of a step: the carry read and written once,
+    # the batch's tables read once
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in runner.c.values()) \
+        + sum(t.numel() * t.element_size() for t in runner.tb.values())
+    out = {"graph_steps": S, "replay_ms": replay_ms,
+           "bytes_per_step": nbytes,
+           "bytes_bound_ms_per_step": nbytes / PEAK_BYTES * 1e3,
+           "ms_per_step": replay_ms / S,
+           "kernels_per_step": n_kernels / S if n_kernels else None,
+           "busy_ms_per_step": busy_ms / S if n_kernels else None,
+           "traced_span_ms": span_ms,
+           "idle_share": 1.0 - busy_ms / span_ms if n_kernels else None,
+           "eager_ms_per_step": eager_ms,
+           "top_kernels_ms_per_step": {e.key[:60]: _device_us(e) / 1e3 / S
+                                       for e in top}}
+    return out
+
+
+def phase_sim(dev) -> dict:
+    """The port's lockstep engine (``core.simulator_jit.simulate_jbatch``)
+    on the card: each small case's rows equal its pin, the smoke
+    corpus's also the port's own CPU rows; the 512-point FULL corpus,
+    twice (the first run captures the CUDA graph), equals its pin; one
+    graph replay is profiled."""
+    from repro_torch.core import simulator_jit as sj
+    from repro_torch.core.scheduler import Policy
+    log("phase 8: the lockstep simulation engine (simulate_jbatch) in "
+        f"CUDA graphs of {sj.GRAPH_STEPS} steps")
+    t_phase = time.perf_counter()
+    lib = sim_library()
+    out = {"cases": {}}
+    for name, ts, seeds, policy, kw in sim_cases(lib):
+        sj.reset_counts()
+        t0 = time.perf_counter()
+        card = sj.simulate_jbatch(ts, lib, policy, seeds=seeds,
+                                  duration=SIM_DURATION, device=dev, **kw)
+        card_s = time.perf_counter() - t0
+        counts = dict(sj.COUNTS)
+        digest = sj.metrics_digest(card)
+        assert digest == SIM_PINS[name], (name, digest)
+        on_cpu = name in ("smoke/sampled", "smoke/nominal")
+        if on_cpu:
+            cpu = sj.simulate_jbatch(ts, lib, policy, seeds=seeds,
+                                     duration=SIM_DURATION, device="cpu",
+                                     **kw)
+            assert sj.metrics_digest(cpu) == digest, name
+        if dev.type == "cuda":
+            assert counts["replays"] > 0 and counts["steps"] > 0, counts
+        out["cases"][name] = dict(counts, points=len(ts), wall_s=card_s)
+        also = " and the CPU port's" if on_cpu else ""
+        log(f"  {name}: {len(ts)} points, rows equal the pin{also}; "
+            f"{counts['steps']} steps, {counts['replays']} replays, "
+            f"{counts['captures']} captures, {card_s:.2f} s")
+    ts, seeds = sim_corpus(lib, **SIM_FULL)
+    runs = []
+    for _ in range(2):
+        sj.reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        ms = sj.simulate_jbatch(ts, lib, Policy.mesc(), seeds=seeds,
+                                duration=SIM_FULL_DURATION, device=dev)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        counts = dict(sj.COUNTS)
+        digest = sj.metrics_digest(ms)
+        assert digest == SIM_PINS["full/sampled"], digest
+        assert counts["steps"] > 0 and counts["replays"] > 0, counts
+        runs.append(dict(counts, wall_s=wall, points=len(ts),
+                         points_per_s=len(ts) / wall))
+    assert runs[1]["captures"] == 0, runs[1]
+    success_hi = float(np.mean([m.misses["HI"] == 0 for m in ms]))
+    success_all = float(np.mean([m.success() for m in ms]))
+    out.update(full=runs, full_success_hi=success_hi,
+               full_success_all=success_all)
+    for i, r in enumerate(runs):
+        log(json.dumps({"lockstep": dict(r, run=i, corpus="perf_sim FULL",
+                                         digest_ok=True)}))
+    if dev.type == "cuda":
+        b = sj._VecBatch(ts, lib, Policy.mesc(), seeds=seeds,
+                         duration=SIM_FULL_DURATION, overrun_prob=0.3,
+                         cf=2.0)
+        runner, state = sj._prepare(b, Policy.mesc(), seeds,
+                                    SIM_FULL_DURATION, 0.3, 2.0, False,
+                                    sj._table_width(), device=dev)
+        assert runner.graph is not None
+        prof = profile_lockstep(runner, state)
+        out["profile"] = prof
+        busy = prof["busy_ms_per_step"]
+        log(f"  one replay of {prof['graph_steps']} steps: "
+            f"{prof['replay_ms']:.3f} ms of card time, "
+            f"{prof['ms_per_step']:.4f} ms a step; "
+            + (f"{prof['kernels_per_step']:.0f} kernels a step, busy "
+               f"{busy:.4f} ms, idle share {prof['idle_share']:.3f}; "
+               if busy is not None else "profiler saw no kernel; ")
+            + f"eager with a sync per step {prof['eager_ms_per_step']:.3f} "
+            f"ms a step; bytes bound {prof['bytes_bound_ms_per_step']:.5f} "
+            f"ms a step ({prof['bytes_per_step']} bytes)")
+        for name, ms_ in prof["top_kernels_ms_per_step"].items():
+            log(f"    {ms_:.5f} ms/step  {name}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  FULL corpus: rows equal the pin in both runs; success_hi "
+        f"{success_hi:.4f}, success_all {success_all:.4f}; "
+        f"{runs[1]['points_per_s']:.1f} points/s; phase "
+        f"{out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 6. timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -1381,6 +1613,7 @@ def main() -> int:
     hybrid_launches = phase_hybrid_serving(dev)
     gemm_launches = phase_gemm(dev)
     RECORD["open_loop"] = phase_open_loop(dev)
+    RECORD["lockstep"] = phase_sim(dev)
     launches = {
         "decode_attention": dense_launches["decode_attention"],
         "flash_attention": dense_launches["flash_attention"],

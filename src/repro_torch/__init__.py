@@ -4,8 +4,11 @@ The JAX package ``repro`` is the reference; this package has its layout
 and names and runs on one NVIDIA Hopper card:
 
   runtime.device  — device resolution (CUDA unless the CPU is asked for)
-  configs         — own copies of ArchConfig and the TinyLlama configs
-  core            — Crit / Mode / Policy and the MESC serving lane
+  runtime.device_config — validated integer environment knobs
+  configs         — own copies of ArchConfig and the reference's ten configs
+  core            — Crit / Mode / Policy, the MESC serving lane, the task
+                    model, programs and task sets, and the lockstep
+                    simulation engine in CUDA graphs (simulator_jit)
   scenarios       — CRN splitmix64 draws and the fault scenarios
   serving         — open-loop traffic, the admission front door, the
                     virtual clock and service model, SLO rows, fig12

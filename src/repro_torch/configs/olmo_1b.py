@@ -1,0 +1,20 @@
+"""OLMo-1B (dense, non-parametric LayerNorm).
+
+[arXiv:2402.00838; hf] — 16L, d_model=2048, 16 heads (kv=16), d_ff=8192,
+vocab=50304, non-parametric LN, tied embeddings.
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="olmo-1b",
+    family="dense",
+    n_layers=16,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=8192,
+    vocab=50304,
+    norm="layernorm_nonparam",
+    tie_embeddings=True,
+    source="arXiv:2402.00838; hf",
+)

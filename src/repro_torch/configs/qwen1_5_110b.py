@@ -1,0 +1,20 @@
+"""Qwen1.5-110B (dense; QKV bias).
+
+[hf:Qwen/Qwen1.5-0.5B; hf] — 80L, d_model=8192, 64 heads (kv=8), d_ff=49152,
+vocab=152064, QKV bias.
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen1.5-110b",
+    family="dense",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=49152,
+    vocab=152064,
+    qkv_bias=True,
+    rope_theta=1000000.0,
+    source="hf:Qwen/Qwen1.5-0.5B; hf",
+)

@@ -15,14 +15,17 @@ draw for (seed, scenario, entity, index) is the same under every
 policy and batch composition, and bit-equal to the reference's.
 
 The helpers run on numpy ``uint64``: the shifts must be logical and the
-multiplies must wrap, which numpy's unsigned arithmetic gives (torch's
-int64 ``>>`` is arithmetic).
+multiplies must wrap, which numpy's unsigned arithmetic gives.  Their
+``*_t`` twins run the same arithmetic on torch int64 tensors for the
+lockstep engine, which draws on the device: torch has no uint64 ``>>``
+and its int64 ``>>`` is arithmetic, so the twins mask the shifts.
 """
 from __future__ import annotations
 
 import hashlib
 
 import numpy as np
+import torch
 
 #: splitmix64 golden-ratio increment.
 GOLD = np.uint64(0x9E3779B97F4A7C15)
@@ -74,3 +77,58 @@ def keyed_u01(seed64, salt: np.uint64, entity, index, sub: int = 0):
         if sub:
             s = s + np.uint64(sub) * GOLD
     return u01(mix64(s))
+
+
+# ----------------------------------------------------------------------
+# torch twins (int64 tensors holding the uint64 bits), for the lockstep
+# engine (core.simulator_jit).  torch has no uint64 ``>>``, so a logical
+# right shift is an arithmetic shift with the sign-extended bits masked
+# off; the wrapping multiply, add and XOR give the same bits in int64 as
+# in uint64.
+# ----------------------------------------------------------------------
+
+_MASK64 = (1 << 64) - 1
+
+
+def as_int64(u) -> int:
+    """The int64 with the bits of the uint64 ``u`` (a Python int)."""
+    u = int(u) & _MASK64
+    return u - (1 << 64) if u >> 63 else u
+
+
+_GOLD_I = as_int64(GOLD)
+_M1_I = as_int64(_M1)
+_M2_I = as_int64(_M2)
+
+
+def lshr(x, k: int):
+    """Logical right shift of int64 ``x`` by ``k`` (0 < k < 64)."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def mix64_t(x):
+    """splitmix64 finalizer on int64 tensors; bit-equal to :func:`mix64`."""
+    x = (x ^ lshr(x, 30)) * _M1_I
+    x = (x ^ lshr(x, 27)) * _M2_I
+    return x ^ lshr(x, 31)
+
+
+def u01_t(bits):
+    """Top 53 bits -> uniform float64 in [0, 1); equal to :func:`u01`."""
+    return lshr(bits, 11).to(torch.float64) * (1.0 / (1 << 53))
+
+
+def counter_t(entity, index):
+    """:func:`counter` on int64 tensors (``index`` may be a Python int)."""
+    if isinstance(index, int):
+        return (entity.to(torch.int64) << 33) + (index << 1)
+    return (entity.to(torch.int64) << 33) + (index.to(torch.int64) << 1)
+
+
+def keyed_u01_t(seed64, salt, entity, index, sub: int = 0):
+    """:func:`keyed_u01` on int64 tensors: ``seed64`` holds the seed's
+    bits, ``salt`` is a :func:`stream_salt` value."""
+    s = (seed64 ^ as_int64(salt)) + counter_t(entity, index) * _GOLD_I
+    if sub:
+        s = s + as_int64(sub * int(GOLD))
+    return u01_t(mix64_t(s))

@@ -41,8 +41,9 @@ import math
 from typing import Optional, Union
 
 import numpy as np
+import torch
 
-from repro_torch.scenarios.crn import keyed_u01, stream_salt
+from repro_torch.scenarios.crn import keyed_u01, keyed_u01_t, stream_salt
 
 _SALT_HEAVY_TAIL = stream_salt("heavy_tail")
 _SALT_BURST = stream_salt("burst")
@@ -250,6 +251,65 @@ def demand_multiplier(scen: Scenario, xp, seed64, task_col, rel_n,
 def burst_window_index(scen: Scenario, xp, t_rel):
     """Integer burst-window index of a release time (int32)."""
     return xp.floor(t_rel / scen.burst_window).astype(np.int32)
+
+
+# ----------------------------------------------------------------------
+# torch twins of the release-time draws, for the lockstep engine
+# (core.simulator_jit): int64 tensors hold the uint64 keys
+# (``crn.keyed_u01_t``), every float operation is the numpy version's in
+# its order, and each torch op is one kernel, so no product is fused into
+# a following add or subtract.
+# ----------------------------------------------------------------------
+
+def _pick(cond, on: float, like):
+    """``where(cond, on, 1.0)`` as float64 (two Python scalars would give
+    torch's default float32)."""
+    return torch.where(cond, on, torch.ones_like(like))
+
+
+def burst_window_index_t(scen: Scenario, t_rel):
+    """:func:`burst_window_index` on a float64 tensor (int32 result)."""
+    return torch.floor(t_rel / scen.burst_window).to(torch.int32)
+
+
+def burst_multiplier_t(scen: Scenario, seed64, window):
+    """:func:`burst_multiplier` on tensors (``seed64`` int64 bits)."""
+    u = keyed_u01_t(seed64, _SALT_BURST, window, 0)
+    return _pick(u < scen.burst_prob, scen.burst_factor, u)
+
+
+def demand_multiplier_t(scen: Scenario, seed64, task_col, rel_n, t_rel,
+                        burst_m=None):
+    """:func:`demand_multiplier` on tensors: the same components in the
+    same order, bit-equal to the numpy version."""
+    m = None
+
+    def _mul(m, f):
+        return f if m is None else m * f
+
+    if scen.has_heavy_tail:
+        ua = keyed_u01_t(seed64, _SALT_HEAVY_TAIL, task_col, rel_n)
+        ub = torch.floor(
+            keyed_u01_t(seed64, _SALT_HEAVY_TAIL, task_col, rel_n, sub=1)
+            * _GRID) / _GRID
+        q = _snap(scen.heavy_tail_q)
+        tail = 1.0 + scen.heavy_tail_scale * ub / (1.0 - q * ub)
+        m = _mul(m, torch.where(ua < scen.heavy_tail_prob, tail,
+                                torch.ones_like(tail)))
+    if scen.has_burst:
+        if burst_m is None:
+            burst_m = burst_multiplier_t(
+                scen, seed64, burst_window_index_t(scen, t_rel))
+        m = _mul(m, burst_m)
+    if scen.has_dma:
+        ud = keyed_u01_t(seed64, _SALT_DMA, task_col, rel_n)
+        m = _mul(m, _pick(ud < scen.dma_prob, scen.dma_factor, ud))
+    if scen.has_thermal:
+        k = torch.floor(t_rel / scen.thermal_period)
+        pos = t_rel - torch.abs(k * scen.thermal_period)
+        on = scen.thermal_duty * scen.thermal_period
+        m = _mul(m, _pick(pos < on, scen.thermal_factor, pos))
+    return m
 
 
 def shifted_phases(scen: Scenario, seed64, task_col, phase, period):

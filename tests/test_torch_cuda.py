@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions on the card.
+"""The port's CUDA kernels against their plain versions on the card, and
+the lockstep simulation engine's CUDA graphs against their pins and the
+CPU.
 
 Marked ``cuda``: they need an NVIDIA card and ``nvcc`` and skip anywhere
 else.  On the card they run without the JAX package:
@@ -401,3 +403,76 @@ def test_open_loop_drive_matches_solo_replays_on_the_card(gen):
                                 max_new_tokens=r.max_new_tokens,
                                 crit=Crit.LO))
             assert solo.run()[0].generated == r.generated, r.rid
+
+
+# ----------------------------------------------------------------------
+# the lockstep simulation engine in CUDA graphs (no kernel of its own:
+# PyTorch operations on the card, captured)
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def sim():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the engine's graphs run there)")
+    import chip_smoke
+    from repro_torch.core import simulator_jit
+    lib = chip_smoke.sim_library()
+    cases = {name: (ts, seeds, policy, kw)
+             for name, ts, seeds, policy, kw in chip_smoke.sim_cases(lib)}
+    return chip_smoke, simulator_jit, lib, cases
+
+
+@pytest.mark.parametrize("name", ["smoke/sampled", "smoke/nominal",
+                                  "mixed/lp", "smoke/faults@0.7"])
+def test_lockstep_engine_on_the_card_equals_its_pin(sim, name):
+    cs, sj, lib, cases = sim
+    ts, seeds, policy, kw = cases[name]
+    sj.reset_counts()
+    got = sj.simulate_jbatch(ts, lib, policy, seeds=seeds,
+                             duration=cs.SIM_DURATION, **kw)
+    assert sj.metrics_digest(got) == cs.SIM_PINS[name]
+    assert sj.COUNTS["replays"] * sj.GRAPH_STEPS >= sj.COUNTS["steps"] > 0
+    # the same batch again replays the captured graph
+    captures = sj.COUNTS["captures"]
+    again = sj.simulate_jbatch(ts, lib, policy, seeds=seeds,
+                               duration=cs.SIM_DURATION, **kw)
+    assert sj.COUNTS["captures"] == captures
+    assert sj.metrics_digest(again) == cs.SIM_PINS[name]
+
+
+def test_lockstep_engine_on_the_card_equals_the_cpu(sim):
+    cs, sj, lib, cases = sim
+    ts, seeds, policy, kw = cases["mixed/mesc"]
+    for scenario in ("heavy_tail", "burst", "thermal_throttle"):
+        card = sj.simulate_jbatch(ts, lib, policy, seeds=seeds,
+                                  duration=4e6, scenario=scenario)
+        cpu = sj.simulate_jbatch(ts, lib, policy, seeds=seeds,
+                                 duration=4e6, scenario=scenario,
+                                 device="cpu")
+        assert card == cpu, scenario
+
+
+def test_lockstep_retry_ladder_and_one_step_graphs_on_the_card(sim,
+                                                                monkeypatch):
+    cs, sj, lib, cases = sim
+    ts, seeds, policy, kw = cases["smoke/sampled"]
+    want = sj.simulate_jbatch(ts, lib, policy, seeds=seeds, duration=4e6)
+    monkeypatch.setenv("REPRO_JIT_TABLE_WIDTH", "2")
+    sj.reset_counts()
+    got = sj.simulate_jbatch(ts, lib, policy, seeds=seeds, duration=4e6)
+    assert sj.COUNTS["retried_points"] > 0 and got == want
+    monkeypatch.delenv("REPRO_JIT_TABLE_WIDTH")
+    monkeypatch.setattr(sj, "GRAPH_STEPS", 1)
+    got = sj.simulate_jbatch(ts, lib, policy, seeds=seeds, duration=4e6)
+    assert got == want
+
+
+def test_lockstep_spans_on_the_card_equal_the_cpu(sim):
+    cs, sj, lib, cases = sim
+    ts, seeds, policy, kw = cases["smoke/sampled"]
+    cpu = sj.simulate_jbatch(ts, lib, policy, seeds=seeds, duration=4e6,
+                             device="cpu")
+    for batch_size in (5, 64):
+        card = sj.simulate_jbatch(ts, lib, policy, seeds=seeds,
+                                  duration=4e6, batch_size=batch_size)
+        assert card == cpu, batch_size

@@ -42,7 +42,20 @@ def test_every_port_module_is_found():
                  "repro_torch.serving", "repro_torch.serving.clock",
                  "repro_torch.serving.traffic", "repro_torch.serving.slo",
                  "repro_torch.serving.frontend",
-                 "repro_torch.serving.fig12"):
+                 "repro_torch.serving.fig12",
+                 "repro_torch.core.isa", "repro_torch.core.task",
+                 "repro_torch.core.program", "repro_torch.core.simulator",
+                 "repro_torch.core.simulator_vec",
+                 "repro_torch.core.simulator_jit",
+                 "repro_torch.runtime.device_config",
+                 "repro_torch.configs.deepseek_v2_lite_16b",
+                 "repro_torch.configs.llama4_maverick_400b_a17b",
+                 "repro_torch.configs.llava_next_34b",
+                 "repro_torch.configs.musicgen_large",
+                 "repro_torch.configs.olmo_1b",
+                 "repro_torch.configs.phi4_mini_3_8b",
+                 "repro_torch.configs.qwen1_5_110b",
+                 "repro_torch.configs.xlstm_125m"):
         assert want in mods
 
 
