@@ -64,7 +64,22 @@ and then, failing on the first phase that goes wrong:
    equal to its pin, with steps, graph replays, host syncs, retried
    points, wall time and points/s on a ``{"lockstep": ...}`` line per
    run; one graph replay is profiled (kernels and card time per step,
-   idle share, eager steps, the step's bytes bound).
+   idle share, eager steps, the step's bytes bound);
+9. (run after 8, before 6) campaigns and the three engines: (a) the
+   FULL corpus through the port's event engine (``simulate``) and NumPy
+   vec engine (``simulate_vbatch(..., select_backend="numpy")``) on the
+   host, one process each: vec rows equal the event rows, which equal a
+   pin of the reference's; the nominal smoke corpus's vec rows equal the
+   jit pin; one ``{"engines": ...}`` line gives each engine's points/s
+   and wall time on that corpus (jit: phase 8's second run) with the
+   host's CPU count and the card's name and power limit; (b) fig8's
+   sweep recipe (4 policies x 6 utilisations x 8 sets, duration 2e7) as
+   a ``repro_torch.experiments.Campaign`` on jit (its chunks in this
+   process, on the card), event and vec, each in a fresh cache
+   directory: every point a miss, the rows equal a pin of the reference
+   ``Campaign``'s rows for that engine, a second run all hits with the
+   same rows; (c) fig11's multi-accelerator ``FuncSweep`` at 2 sets, the
+   same way.
 
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.  Everything printed is also written to
@@ -77,10 +92,13 @@ import dataclasses
 import hashlib
 import itertools
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1129,8 +1147,9 @@ SIM_MIXED_SIZES = (3, 10, 6, 13)
 SIM_DURATION, SIM_FULL_DURATION = 2e7, 2e8
 # sha256 (simulator_jit.metrics_digest: every field of every row, floats
 # as float.hex) of the JAX package's simulate_jbatch rows for each case,
-# computed on the CPU; tests/test_torch_simulator_jit.py holds the port
-# and the reference to the same pins
+# computed on the CPU; tests/test_torch_simulator_jit.py and
+# tests/test_torch_experiments.py hold the port and the reference to the
+# same pins
 SIM_PINS = {
     "smoke/sampled":
         "8bde19b7d2ecdaa21b97fa4538daa5e344ad18b767a5e39670a9aa563cf89eab",
@@ -1148,6 +1167,19 @@ SIM_PINS = {
         "ffc0807f60c9d2f40745595d20fffc3c9fe9de2625ee926184393576ffd0171e",
     "full/sampled":
         "922debb2f9c064a4e420b51b0b878ddbf9a7c0216bd0c702e05a7b2af11ce1b1",
+    # phase 9: metrics_digest of the reference's event engine (simulate)
+    # on the FULL corpus, and rows_digest of the reference Campaign's
+    # rows for fig8's sweep on each engine and fig11's FuncSweep
+    "full/event":
+        "09eb53fa3c19c048f15e8e80249510b1d6f7a7cd1221639404a27611fe089975",
+    "fig8/event":
+        "a1cea7f3bc12df4fca118ed497dc05c9773c9a6a3fd3d8de173b7d6661c08d8d",
+    "fig8/vec":
+        "a1cea7f3bc12df4fca118ed497dc05c9773c9a6a3fd3d8de173b7d6661c08d8d",
+    "fig8/jit":
+        "262e6fe6db3ea6dbf57c9cbc32f0d52c89edb51df998af509dd09629cb5bff4d",
+    "fig11/multiacc":
+        "1b596716248722fd185bc8856d85147142048800b783948c27ce5be1e6c01fd9",
 }
 
 
@@ -1334,6 +1366,177 @@ def phase_sim(dev) -> dict:
         f"{success_hi:.4f}, success_all {success_all:.4f}; "
         f"{runs[1]['points_per_s']:.1f} points/s; phase "
         f"{out['wall_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 9. campaigns and the three engines (runs after 8, before the timing of 6)
+# ---------------------------------------------------------------------------
+
+# benchmarks/fig8_success.py's sweep recipe (its four systems over
+# benchmarks/common.py's UTILS), cut to 8 sets and duration 2e7, and
+# benchmarks/fig11_multiacc.py's FuncSweep at 2 sets (duration 2e8)
+CAMPAIGN_UTILS = (0.5, 0.6, 0.7, 0.8, 0.9, 0.95)
+CAMPAIGN_SETS, CAMPAIGN_DURATION = 8, 2e7
+FIG11_SETS = 2
+FIG11_INSTANCES, FIG11_UTILS_PER_INST = (1, 2, 4), (0.6, 0.8)
+FIG11_HEURISTICS = ("first_fit", "worst_fit", "crit_aware")
+def fig8_sweep(engine: str, n_sets: int = CAMPAIGN_SETS):
+    """fig8's campaign: mesc, np, amc and non-preemptive AMC over the
+    utilisation band, ``n_sets`` sets per cell."""
+    from repro_torch.core.scheduler import Policy
+    from repro_torch.experiments import Sweep
+    systems = (Policy.mesc(), Policy.non_preemptive(), Policy.amc(),
+               Policy(preemption="none", drop_lo_in_hi=True, name="amc-np"))
+    return Sweep(name="fig8_success", policies=systems,
+                 utils=CAMPAIGN_UTILS, n_sets=n_sets,
+                 duration=CAMPAIGN_DURATION, engine=engine)
+
+
+def fig11_sweep(n_sets: int = FIG11_SETS):
+    """fig11's multi-accelerator FuncSweep over the port's point
+    function (its point keys name the port's function, its rows equal
+    the reference's)."""
+    from repro_torch.core.simulator import (MULTI_SIM_SEMANTICS_VERSION,
+                                            SIM_SEMANTICS_VERSION)
+    from repro_torch.experiments import FuncSweep
+    items = [dict(policy=policy, u=round(u_norm * n, 4), n_instances=n,
+                  heuristic=heur, set_index=s,
+                  sim_v=[SIM_SEMANTICS_VERSION, MULTI_SIM_SEMANTICS_VERSION])
+             for policy in ("mesc", "np") for n in FIG11_INSTANCES
+             for heur in FIG11_HEURISTICS for u_norm in FIG11_UTILS_PER_INST
+             for s in range(n_sets)]
+    return FuncSweep.over(
+        "fig11_multiacc",
+        "repro_torch.experiments.multiacc:simulate_multiacc_point", items)
+
+
+def _hexed(x):
+    if isinstance(x, float):
+        return x.hex()
+    if isinstance(x, dict):
+        return {k: _hexed(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_hexed(v) for v in x]
+    return x
+
+
+def rows_digest(rows) -> str:
+    """sha256 of campaign rows, key-sorted JSON with floats as
+    ``float.hex`` (bit-exact)."""
+    return hashlib.sha256(json.dumps(_hexed(rows), sort_keys=True)
+                          .encode()).hexdigest()
+
+
+def _campaign_twice(sweep, device, workers) -> dict:
+    """A campaign in a fresh cache directory (every point a miss), then
+    again in the same directory (every point a hit, the same rows)."""
+    from repro_torch.core import simulator_jit as sj
+    from repro_torch.experiments import Campaign
+    n = len(sweep.points())
+    (ROOT / "results").mkdir(exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_", dir=ROOT / "results")
+    try:
+        sj.reset_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        first = Campaign(sweep, cache_dir=cache, workers=workers,
+                         device=device)
+        rows = first.collect()
+        _sync(device)
+        wall = time.perf_counter() - t0
+        counts = dict(sj.COUNTS)
+        assert first.stats == {"hits": 0, "misses": n}, first.stats
+        t0 = time.perf_counter()
+        again = Campaign(sweep, cache_dir=cache, workers=workers,
+                         device=device)
+        rows2 = again.collect()
+        hit_s = time.perf_counter() - t0
+        assert again.stats == {"hits": n, "misses": 0}, again.stats
+        assert rows2 == rows, sweep.name
+    finally:
+        shutil.rmtree(cache)
+    return dict(rows=rows, points=n, wall_s=wall, hit_wall_s=hit_s,
+                steps=counts["steps"], replays=counts["replays"])
+
+
+def phase_campaign(dev, jit_run=None, full=None) -> dict:
+    """(a) The FULL corpus through the port's event engine and NumPy vec
+    engine on the host: vec rows equal the event rows, which equal the
+    reference's pin; the nominal smoke corpus's vec rows equal the jit
+    pin.  One ``{"engines": ...}`` line gives each engine's points/s,
+    the jit figures from ``jit_run`` (phase 8's second FULL run).
+    (b) fig8's campaign on jit (on ``dev``), event and vec, each equal
+    to its pin, a second run all hits.  (c) fig11's multi-accelerator
+    FuncSweep, equal to its pin."""
+    from repro_torch.core import simulator_jit as sj
+    from repro_torch.core.scheduler import Policy
+    from repro_torch.core.simulator import simulate
+    from repro_torch.core.simulator_vec import simulate_vbatch
+    log("phase 9: campaigns and the three engines")
+    t_phase = time.perf_counter()
+    full = SIM_FULL if full is None else full
+    lib = sim_library()
+    ts, seeds = sim_corpus(lib, **full)
+    policy = Policy.mesc()
+    t0 = time.perf_counter()
+    ev = [simulate(t, lib, policy, seed=s, duration=SIM_FULL_DURATION)
+          for t, s in zip(ts, seeds)]
+    ev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vec = simulate_vbatch(ts, lib, policy, seeds=seeds,
+                          duration=SIM_FULL_DURATION, batch_size=512,
+                          select_backend="numpy")
+    vec_s = time.perf_counter() - t0
+    assert vec == ev, "vec rows differ from the event rows"
+    ev_digest = sj.metrics_digest(ev)
+    if full == SIM_FULL:
+        assert ev_digest == SIM_PINS["full/event"], ev_digest
+    nts, nseeds = sim_corpus(lib, **SIM_SMOKE)
+    nominal = simulate_vbatch(nts, lib, policy, seeds=nseeds,
+                              duration=SIM_DURATION,
+                              demand_profile="nominal")
+    assert sj.metrics_digest(nominal) == SIM_PINS["smoke/nominal"]
+    n = len(ts)
+    host = f"host, one process, {os.cpu_count()} CPUs on the machine"
+    engines = {
+        "event": dict(points_per_s=n / ev_s, wall_s=ev_s, where=host),
+        "vec": dict(points_per_s=n / vec_s, wall_s=vec_s, where=host),
+        "jit": (dict(points_per_s=jit_run["points_per_s"],
+                     wall_s=jit_run["wall_s"],
+                     where=f"{dev.type}, phase 8 second run")
+                if jit_run is not None else None)}
+    card, power = [x.strip() for x in smi().split(",", 1)] \
+        if dev.type == "cuda" else (None, None)
+    log(f"  (a) {n} points, duration {SIM_FULL_DURATION:.0e}: vec rows "
+        "equal the event rows" + (", which equal the reference's pin"
+                                  if full == SIM_FULL else "")
+        + "; the nominal smoke corpus's vec rows equal the jit pin")
+    log(json.dumps({"engines": engines, "corpus": "perf_sim FULL"
+                    if full == SIM_FULL else f"cut {full}", "points": n,
+                    "host_cpus": os.cpu_count(), "card": card,
+                    "power_limit": power}))
+    out = {"engines": engines, "full_event_digest": ev_digest,
+           "campaigns": {}}
+    workers = os.cpu_count() or 1
+    for engine in ("jit", "event", "vec"):
+        r = _campaign_twice(fig8_sweep(engine), dev, workers)
+        digest = rows_digest(r.pop("rows"))
+        assert digest == SIM_PINS[f"fig8/{engine}"], (engine, digest)
+        if engine == "jit" and dev.type == "cuda":
+            assert r["replays"] > 0 and r["steps"] > 0, r
+        out["campaigns"][f"fig8/{engine}"] = r
+        log(f"  (b) fig8 campaign, {engine}: {r['points']} points equal the "
+            f"pin in {r['wall_s']:.2f} s ({r['steps']} lockstep steps); "
+            f"the second run all hits, {r['hit_wall_s']:.2f} s")
+    r = _campaign_twice(fig11_sweep(), dev, workers)
+    digest = rows_digest(r.pop("rows"))
+    assert digest == SIM_PINS["fig11/multiacc"], digest
+    out["campaigns"]["fig11/multiacc"] = r
+    log(f"  (c) fig11 multiacc FuncSweep: {r['points']} points equal the "
+        f"pin in {r['wall_s']:.2f} s; the second run all hits")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase {out['wall_s']:.1f} s")
     return out
 
 
@@ -1614,6 +1817,7 @@ def main() -> int:
     gemm_launches = phase_gemm(dev)
     RECORD["open_loop"] = phase_open_loop(dev)
     RECORD["lockstep"] = phase_sim(dev)
+    RECORD["campaign"] = phase_campaign(dev, RECORD["lockstep"]["full"][1])
     launches = {
         "decode_attention": dense_launches["decode_attention"],
         "flash_attention": dense_launches["flash_attention"],

@@ -1222,13 +1222,19 @@ def simulate_jbatch(tasksets: Sequence[List[TaskParams]],
 
 def metrics_digest(metrics: Sequence[RunMetrics]) -> str:
     """sha256 over every field of every row, floats as ``float.hex``
-    (bit-exact), in order: the pin the card's rows are held to."""
+    (bit-exact), in order: the pin the card's rows are held to.  A
+    sample list (the event and vec engines') is hashed as its sum and
+    count, summed in event order as ``metrics_row`` does, so rows that
+    ``metrics_row`` flattens equally hash equally whichever engine made
+    them."""
     h = hashlib.sha256()
     for m in metrics:
         fields = []
         for name in ("pi_blocking", "ci_blocking", "save_cycles",
                      "restore_cycles"):
             agg = getattr(m, name)
+            if isinstance(agg, list):
+                agg = AggSamples(float(sum(agg)), len(agg))
             fields += [float(agg.total).hex(), str(int(agg.n))]
         for name in ("jobs", "done", "misses", "misses_by_mode"):
             d = getattr(m, name)

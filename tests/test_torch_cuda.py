@@ -476,3 +476,22 @@ def test_lockstep_spans_on_the_card_equal_the_cpu(sim):
         card = sj.simulate_jbatch(ts, lib, policy, seeds=seeds,
                                   duration=4e6, batch_size=batch_size)
         assert card == cpu, batch_size
+
+
+def test_jit_campaign_on_the_card_equals_the_cpu_and_its_pin(sim, tmp_path):
+    """A jit campaign runs its chunks in this process on the card (device
+    None); its rows equal the CPU campaign's and fig8's pin."""
+    cs, sj, lib, cases = sim
+    from repro_torch.experiments import Campaign
+    sweep = cs.fig8_sweep("jit")
+    sj.reset_counts()
+    card = Campaign(sweep, cache_dir=tmp_path / "card", workers=2)
+    rows = card.collect()
+    assert card.stats == {"hits": 0, "misses": 192}
+    assert sj.COUNTS["replays"] > 0
+    assert cs.rows_digest(rows) == cs.SIM_PINS["fig8/jit"]
+    small = cs.fig8_sweep("jit", n_sets=1)
+    cpu = Campaign(small, cache_dir=tmp_path / "cpu", workers=1,
+                   device="cpu").collect()
+    assert Campaign(small, cache_dir=tmp_path / "card2",
+                    workers=1).collect() == cpu

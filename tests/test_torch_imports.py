@@ -55,7 +55,17 @@ def test_every_port_module_is_found():
                  "repro_torch.configs.olmo_1b",
                  "repro_torch.configs.phi4_mini_3_8b",
                  "repro_torch.configs.qwen1_5_110b",
-                 "repro_torch.configs.xlstm_125m"):
+                 "repro_torch.configs.xlstm_125m",
+                 "repro_torch.core", "repro_torch.core.scheduler",
+                 "repro_torch.core.remapper", "repro_torch.core.executor",
+                 "repro_torch.core.monitor", "repro_torch.core.wcrt",
+                 "repro_torch.core.platform",
+                 "repro_torch.experiments",
+                 "repro_torch.experiments.spec",
+                 "repro_torch.experiments.cache",
+                 "repro_torch.experiments.metrics",
+                 "repro_torch.experiments.runner",
+                 "repro_torch.experiments.multiacc"):
         assert want in mods
 
 

@@ -178,8 +178,9 @@ def test_entry_points_run_on_the_card_or_raise(monkeypatch):
     with pytest.raises(ValueError, match="6.3"):
         sj.simulate_jbatch(ts, LIB, Policy.mesc(), seeds=sd, duration=1e5,
                            devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="6.2"):
-        simulate_vbatch(ts, LIB, Policy.mesc(), seeds=sd, duration=1e5)
+    # the host backend, the default, runs without the card
+    host = simulate_vbatch(ts, LIB, Policy.mesc(), seeds=sd, duration=1e5)
+    assert len(host) == len(ts)
     with pytest.raises(ValueError, match="select_backend"):
         simulate_vbatch(ts, LIB, Policy.mesc(), seeds=sd,
                         select_backend="gpu")
