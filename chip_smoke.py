@@ -19,14 +19,21 @@ and then, failing on the first phase that goes wrong:
    in fp32 and bf16: the GEMM, decode and flash kernels at TinyLlama's
    shapes, the RG-LRU scan (bit for bit, every instantiation of its plan
    on both copy routes), flash with a 2048 window at dh 256 and decode
-   at dh 256 / G 10 on a 2048-slot ring at recurrentgemma-2b's; the bf16
-   flash kernel at every head dim it instantiates; decode at the edges of
+   at dh 256 / G 10 on a 2048-slot ring at recurrentgemma-2b's; flash at
+   DeepSeek-V2-Lite's MLA prefill shapes (16 heads, q/k head dim 192
+   against v 128, and the smoke config's 24/16; bf16 and fp32; a 512-token
+   and a ragged 300-token prompt; every operand a view inside a NaN
+   frame); the bf16 flash kernel at every (dqk, dv) pair it instantiates;
+   decode at the edges of
    its split plan's chunks, each call made twice and required to repeat
    bit for bit, and one decode call profiled to be one kernel launch;
 3. checks full-width TinyLlama-1.1B, and recurrentgemma-2b cut to 5
    layers (one (rglru, rglru, attn) group and the 2-layer tail) with a
    512-token prompt, in fp32, teacher-forced, on the card (kernels)
-   against the CPU (plain versions);
+   against the CPU (plain versions); then, with 64-token prompts,
+   DeepSeek-V2-Lite cut to 2 layers and one Llama-4-Maverick group at
+   full width with its experts cut to 8, each MoE call required to
+   choose the same experts on both sides before the logits are compared;
 4. serves full-width TinyLlama-1.1B and full-width recurrentgemma-2b in
    bf16 through the port's MESC server (the batch drive of
    ``repro_torch.launch.serve``), checking the step order against the
@@ -35,7 +42,14 @@ and then, failing on the first phase that goes wrong:
    for recurrentgemma-2b a run with one resident slot evicts a LO
    request's cache to the host and restores it, and its tokens must
    equal an uninterrupted run's; the save and restore of one request's
-   context are timed, and a decode step of each model is profiled;
+   context are timed, and a decode step of each model is profiled; then
+   full-width, full-depth DeepSeek-V2-Lite (MLA + MoE, 16.2 B parameters,
+   made a 2-D slice at a time, its peak card memory recorded) under
+   MESC and non-preemptive serving and MESC at 512-token prompts (flash
+   27 times a prefill, no decode-attention launch: MLA's decode has no
+   kernel), its context move and decode step profiled, and one
+   full-width Llama-4-Maverick group (attn + dense, attn + 128-expert
+   MoE; 18.5 B parameters) under MESC and non-preemptive serving;
 5. runs the preemptible GEMM (``repro_torch.launch.preemptible_gemm``);
 6. times each kernel at its main path's shapes against its plain version,
    one PyTorch library call (where one computes the same function) and
@@ -280,7 +294,10 @@ def kernel_report() -> list:
              for k in KERNELS}
     scan_entries = 2 * len(rglru_scan.CHANNELS) * len(rglru_scan.STEPS) \
         * len(rglru_scan.STAGES)                       # x the two routes
-    assert count["flash_mma_kernel"] == 5 and count["decode_kernel"] == 10 \
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    assert count["flash_mma_kernel"] == len(HEAD_DIMS) \
+        and count["flash_kernel"] == len(HEAD_DIMS) \
+        and count["decode_kernel"] == 10 \
         and count["gemm_wgmma_kernel"] == 8 \
         and count["gemm_f32_kernel"] == 8 \
         and count["rglru_kernel"] == scan_entries, count
@@ -350,6 +367,7 @@ def phase_kernels(dev):
                                             block_q=bq, block_kv=bkv),
                         ref.flash_attention_ref(q, k, v, causal=causal), 5e-5)
     phase_hybrid_kernels(dev, gen)
+    phase_mla_kernels(dev, gen)
     phase_attention_edges(dev, gen)
     torch.cuda.synchronize()
 
@@ -488,6 +506,42 @@ def phase_hybrid_kernels(dev, gen):
                         ATTN_TOL[dt])
 
 
+def _nan_framed(shape, gen, dtype):
+    """A (B,H,S,D) view of random values for a (B,S,H,D) ``shape`` inside
+    a NaN frame: one more sequence row, one more head and 8 more columns
+    than the view holds (8 keeps bf16 rows 16-byte aligned), so a kernel
+    that reads outside its view returns NaN."""
+    B, S, H, D = shape
+    buf = torch.full((B, S + 1, H + 1, D + 8), float("nan"), dtype=dtype,
+                     device=gen.device)
+    view = buf[:, :S, :H, :D]
+    view.copy_(randn(shape, gen, dtype))
+    return view.transpose(1, 2)
+
+
+def phase_mla_kernels(dev, gen):
+    """Flash at DeepSeek-V2-Lite's MLA prefill shapes against its plain
+    version: 16 heads, dqk 192 (128 nope + 64 rope) against dv 128 in
+    bf16 (the serving path) and fp32 (the parity path), and the smoke
+    config's 24/16, causal, at the 512-token prompt and a ragged 300,
+    every operand a view inside a NaN frame."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_tpu
+    for (dqk, dv), dt in [((192, 128), torch.bfloat16),
+                          ((192, 128), torch.float32),
+                          ((24, 16), torch.float32),
+                          ((24, 16), torch.bfloat16)]:
+        for S in (512, 300):
+            q = _nan_framed((1, S, 16, dqk), gen, dt)
+            k = _nan_framed((1, S, 16, dqk), gen, dt)
+            v = _nan_framed((1, S, 16, dv), gen, dt)
+            out = flash_attention_tpu(q, k, v)
+            assert out.shape == (1, 16, S, dv), out.shape
+            check_close(f"flash MLA dqk {dqk} dv {dv} q 1x16x{S} {dt} "
+                        "(NaN frame)", out, ref.flash_attention_ref(q, k, v),
+                        ATTN_TOL[dt])
+
+
 def phase_scan_kernel(dev, gen):
     """The RG-LRU scan bit for bit (max error 0) against its plain version:
     the test_rglru_kernel_sweep shapes, recurrentgemma-2b's 512- and
@@ -531,7 +585,8 @@ def phase_scan_kernel(dev, gen):
 
 
 def phase_attention_edges(dev, gen):
-    """The bf16 tensor-core flash kernel at every head dim it instantiates;
+    """The bf16 tensor-core flash kernel at every (dqk, dv) pair it
+    instantiates;
     decode at the edges of its split plan's chunks, every call twice and
     bit-identical (the last block reset its counter), and one call
     profiled to be one kernel launch."""
@@ -545,23 +600,23 @@ def phase_attention_edges(dev, gen):
                                                      flash_attention_tpu)
     bf = torch.bfloat16
     # GQA 8/2, MQA 4/1, MHA 4/4 (batch 2); ragged S; model-layout views
-    for dh in HEAD_DIMS:
+    for dh, dv in HEAD_DIMS:
         for (B, Hq, Hkv) in [(1, 8, 2), (1, 4, 1), (2, 4, 4)]:
             for S in (8, 100):
                 q = randn((B, S, Hq, dh), gen, bf).transpose(1, 2)
                 k = randn((B, S, Hkv, dh), gen, bf).transpose(1, 2)
-                v = randn((B, S, Hkv, dh), gen, bf).transpose(1, 2)
+                v = randn((B, S, Hkv, dv), gen, bf).transpose(1, 2)
                 for causal in (True, False):
-                    check_close(f"flash bf16 dh{dh} B{B} Hq{Hq} Hkv{Hkv} S{S}"
-                                f" causal={causal}",
+                    check_close(f"flash bf16 dh{dh}/{dv} B{B} Hq{Hq} Hkv{Hkv}"
+                                f" S{S} causal={causal}",
                                 flash_attention_tpu(q, k, v, causal=causal),
                                 ref.flash_attention_ref(q, k, v,
                                                         causal=causal),
                                 ATTN_TOL[bf])
         q = randn((1, 300, 4, dh), gen, bf).transpose(1, 2)
         k = randn((1, 300, 1, dh), gen, bf).transpose(1, 2)
-        v = randn((1, 300, 1, dh), gen, bf).transpose(1, 2)
-        check_close(f"flash bf16 dh{dh} Hq4 Hkv1 S300 window 64",
+        v = randn((1, 300, 1, dv), gen, bf).transpose(1, 2)
+        check_close(f"flash bf16 dh{dh}/{dv} Hq4 Hkv1 S300 window 64",
                     flash_attention_tpu(q, k, v, window=64, block_q=300,
                                         block_kv=300),
                     ref.flash_attention_ref(q, k, v, window=64), ATTN_TOL[bf])
@@ -622,27 +677,55 @@ def _leaves(tree, prefix=""):
             yield prefix + k, v
 
 
+def _same_experts(what, cpu_routes, dev_routes) -> float:
+    """Fail unless the card chose the CPU's experts in every MoE call
+    (layer) for every token; a near-tie in fp32 that flips one choice
+    moves the logits by far more than LOGIT_TOL, so this is checked
+    first, and a flip is reported with its router margin.  Returns the
+    smallest margin (k-th choice's probability less the best unchosen
+    one) on the CPU side, or inf without MoE calls."""
+    assert len(cpu_routes) == len(dev_routes), (what, len(cpu_routes),
+                                                len(dev_routes))
+    low = float("inf")
+    for layer, (c, d) in enumerate(zip(cpu_routes, dev_routes)):
+        if not torch.equal(c["experts"], d["experts"]):
+            bad = (c["experts"] != d["experts"]).any(-1)
+            raise AssertionError(
+                f"{what}: MoE call {layer} chose other experts on the card "
+                f"for {int(bad.sum())} token(s); CPU router margins there "
+                f"{c['margin'][bad].tolist()}, card "
+                f"{d['margin'][bad].tolist()}")
+        low = min(low, float(c["margin"].min()))
+    return low
+
+
 def phase_model(dev, cfg, prompt_len, max_len=None):
     """``cfg`` at full width in fp32, card (kernels) against CPU (plain
     versions), teacher-forced: prefill, then 6 decode steps fed the CPU's
-    greedy tokens.  Returns the largest logit error."""
+    greedy tokens.  In a MoE family every call's experts must be the
+    same on both sides before the logits are compared.  Returns the
+    largest logit error."""
     from repro_torch.configs.base import _pattern_for
     from repro_torch.kernels import _build
-    from repro_torch.models import lm
+    from repro_torch.models import ffn, lm
     from repro_torch.models.common import CPU_RC
     log(f"phase 3: full-width {cfg.name} ({cfg.n_layers} layers) fp32, card "
         f"(kernels) vs CPU (plain versions), {prompt_len}-token prompt, "
         "teacher-forced")
+    t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     p_dev = lm.init_params(cfg, gen, CPU_RC, device=dev)
     p_cpu = _tree_to(p_dev, "cpu")
     prompt = np.random.default_rng(1).integers(0, cfg.vocab, (1, prompt_len),
                                                dtype=np.int32)
     batch = {"tokens": torch.from_numpy(prompt)}
-    lc, cc = lm.prefill(cfg, p_cpu, batch, CPU_RC, max_len=max_len)
+    with ffn.record_routes() as r_cpu:
+        lc, cc = lm.prefill(cfg, p_cpu, batch, CPU_RC, max_len=max_len)
     _build.reset_launches()
-    ld, cd = lm.prefill(cfg, p_dev, batch, CPU_RC, max_len=max_len)
+    with ffn.record_routes() as r_dev:
+        ld, cd = lm.prefill(cfg, p_dev, batch, CPU_RC, max_len=max_len)
     torch.cuda.synchronize()
+    margins = [_same_experts("prefill", r_cpu, r_dev)]
     pattern = _pattern_for(cfg)
     assert _build.LAUNCHES["flash_attention"] == pattern.count("attn") and \
         _build.LAUNCHES["rglru_scan"] == pattern.count("rglru"), \
@@ -655,13 +738,27 @@ def phase_model(dev, cfg, prompt_len, max_len=None):
                     LOGIT_TOL)
     tok = int(torch.argmax(lc[0]))
     for step in range(6):
-        lc, cc = lm.decode_step(cfg, p_cpu, torch.tensor([tok]), cc, CPU_RC)
-        ld, cd = lm.decode_step(cfg, p_dev, torch.tensor([tok]), cd, CPU_RC)
+        with ffn.record_routes() as r_cpu:
+            lc, cc = lm.decode_step(cfg, p_cpu, torch.tensor([tok]), cc,
+                                    CPU_RC)
+        with ffn.record_routes() as r_dev:
+            ld, cd = lm.decode_step(cfg, p_dev, torch.tensor([tok]), cd,
+                                    CPU_RC)
+        margins.append(_same_experts(f"decode step {step}", r_cpu, r_dev))
         errs.append(check_close(f"decode step {step} logits", ld.cpu(), lc,
                                 LOGIT_TOL))
         tok = int(torch.argmax(lc[0]))
+    if cfg.moe is not None:
+        RECORD.setdefault("moe_min_router_margin", {})[cfg.name] = \
+            min(margins)
+        log(f"  same experts on both sides in every MoE call; smallest "
+            f"router margin {min(margins):.3e}")
     del p_dev, cd
     torch.cuda.empty_cache()
+    RECORD.setdefault("phase3_s", {})[cfg.name] = \
+        time.perf_counter() - t_phase
+    log(f"  {cfg.name} ({cfg.n_layers} layers): "
+        f"{RECORD['phase3_s'][cfg.name]:.1f} s")
     return max(errs)
 
 
@@ -686,22 +783,41 @@ def _ran(order):
     return len(rids), len(set(rids))
 
 
-def phase_serving(dev, arch, runs):
+def phase_serving(dev, arch, runs, n_layers=None):
     """Serve full-width ``arch`` in bf16 through the port's MESC server,
     one batch-drive run per (policy, lanes, prompt, max_len, slots) in
     ``runs``; check each against the CPU port's step order and the
-    kernel launches against the layer pattern.  Returns (results by run
-    tag, cfg, params, rc)."""
+    kernel launches against the layer pattern (MLA's decode has no
+    kernel: no decode-attention launch).  ``n_layers`` cuts the depth.
+    Returns (results by run tag, cfg, params, rc)."""
+    from repro_torch.configs import get_config
     from repro_torch.configs.base import _pattern_for
     from repro_torch.core.scheduler import Policy
     from repro_torch.core.task import Crit
     from repro_torch.kernels import _build
     from repro_torch.launch import serve
-    log(f"phase 4: MESC serving of full-width {arch}, bf16")
-    cfg, params, rc = serve.load_model(arch, dev)
+    log(f"phase 4: MESC serving of full-width {arch}"
+        f"{'' if n_layers is None else f' cut to {n_layers} layers'}, bf16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg, params, rc = serve.init_model(cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    load = {"params": n_params, "load_s": time.perf_counter() - t0,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "card": torch.cuda.get_device_name(0)}
+    RECORD.setdefault("model_load", {})[cfg.name + (
+        "" if n_layers is None else f"@{n_layers}L")] = load
+    log(f"  {n_params / 1e9:.3f} B parameters loaded in {load['load_s']:.1f}"
+        f" s; peak card memory {load['max_memory_allocated'] / 2**30:.2f} "
+        "GiB")
     scfg, sparams, src = serve.load_model(arch + "-smoke", "cpu")
     pattern = _pattern_for(cfg)
     n_attn, n_rec = pattern.count("attn"), pattern.count("rglru")
+    n_dec = 0 if cfg.family == "mla_moe" else n_attn
     out = {}
     for name, lanes, plen, max_len, slots in runs:
         policy = Policy.mesc() if name == "mesc" else Policy.non_preemptive()
@@ -724,7 +840,7 @@ def phase_serving(dev, arch, runs):
                   rc=src, order=cpu_order, **kw)
         assert order == cpu_order, f"{tag}: step order differs from the CPU"
         steps, prefills = _ran(order)
-        assert launches["decode_attention"] == n_attn * steps, (tag, launches)
+        assert launches["decode_attention"] == n_dec * steps, (tag, launches)
         assert launches["flash_attention"] == n_attn * prefills, \
             (tag, launches)
         assert launches["rglru_scan"] == n_rec * prefills, (tag, launches)
@@ -814,6 +930,42 @@ def phase_hybrid_serving(dev):
     del params
     torch.cuda.empty_cache()
     return out["mesc lanes=1 prompt=512 max_len=1024 slots=2"]["launches"]
+
+
+def phase_mla_serving(dev):
+    """deepseek-v2-lite-16b at full width and depth (27 layers of MLA +
+    64-expert MoE, 16.2 B parameters): MESC and non-preemptive on one
+    lane, and MESC at 512-token prompts; flash runs 27 times a prefill,
+    decode attention never (MLA's decode is PyTorch operations).  Then
+    the card is freed for the next model."""
+    runs = [("mesc", 1, 8, 64, 2), ("np", 1, 8, 64, 2),
+            ("mesc", 1, 512, 1024, 2)]
+    out, cfg, params, rc = phase_serving(dev, "deepseek-v2-lite-16b", runs)
+    for tag, r in out.items():
+        log(f"  {tag}: TTFT / latency {r['ttft_latency_s']}")
+    RECORD["mla_moe_serving"] = out
+    RECORD["mla_moe_context_move"] = context_move_ms(cfg, params, rc)
+    RECORD["mla_moe_decode_profile"] = profile_decode(cfg, params, rc)
+    del params
+    torch.cuda.empty_cache()
+    return out["mesc lanes=1 prompt=512 max_len=1024 slots=2"]["launches"]
+
+
+def phase_moe_serving(dev):
+    """llama4-maverick-400b-a17b at full width, cut to one (attn + dense,
+    attn + 128-expert MoE) group (18.5 B parameters, 37 GB in bf16; the
+    whole model is 397.7 B): MESC and non-preemptive on one lane; two
+    decode-attention launches a decode step and two flash launches a
+    prefill."""
+    runs = [("mesc", 1, 8, 64, 2), ("np", 1, 8, 64, 2)]
+    out, cfg, params, rc = phase_serving(dev, "llama4-maverick-400b-a17b",
+                                         runs, n_layers=2)
+    for tag, r in out.items():
+        log(f"  {tag}: TTFT / latency {r['ttft_latency_s']}")
+    RECORD["moe_serving"] = out
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def _device_us(evt) -> float:
@@ -1683,6 +1835,23 @@ def phase_timing(dev, launches, card, power):
                ", window ring")
     flash_row("flash_attention@recurrentgemma-2b", 10, 1, 256, 512, 2048,
               ", window 2048")
+    # deepseek-v2-lite-16b: one MLA layer of the 512-token prefill, q/k
+    # head dim 192 against v 128, 16 heads; SDPA takes Ev != E as it is
+    H, S, dqk, dv = 16, 512, 192, 128
+    q = randn((1, S, H, dqk), gen, bf).transpose(1, 2)
+    k = randn((1, S, H, dqk), gen, bf).transpose(1, 2)
+    v = randn((1, S, H, dv), gen, bf).transpose(1, 2)
+    pairs = S * (S + 1) // 2
+    row("flash_attention@deepseek-v2-lite-16b",
+        "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
+        "src/repro/kernels/flash_attention.py:64",
+        lambda: flash_attention_tpu(q, k, v),
+        lambda: ref.flash_attention_ref(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        2 * H * pairs * (dqk + dv), 2 * H * S * (2 * dqk + 2 * dv),
+        PEAK_BF16, ATTN_TOL[bf],
+        f"q 1x{H}x{S}x{dqk}, k 1x{H}x{S}x{dqk}, v 1x{H}x{S}x{dv} bf16, "
+        "causal")
     Bs, S, D = 1, 512, 2560
     a = torch.rand((Bs, S, D), generator=gen, device=dev) * 0.599 + 0.4
     b, h0 = randn((Bs, S, D), gen), randn((Bs, D), gen)
@@ -1812,8 +1981,26 @@ def main() -> int:
     hybrid5 = dataclasses.replace(get_config("recurrentgemma-2b"),
                                   n_layers=5)
     RECORD["hybrid_fp32_max_logit_err"] = phase_model(dev, hybrid5, 512)
+    # two MLA + MoE layers of deepseek-v2-lite-16b (1.6 B parameters, 6.4
+    # GB in fp32 a side); one (attn + dense, attn + MoE) group of
+    # llama4-maverick-400b-a17b with all 128 experts, router, top-1 and
+    # capacity as published, each expert's hidden width cut from 8192 to
+    # 512 (3.5 B parameters, 14 GB a side; at 8192 the group is 18.5 B,
+    # 74 GB in fp32 a side, over what the card and the host hold together)
+    ds2 = dataclasses.replace(get_config("deepseek-v2-lite-16b"), n_layers=2)
+    RECORD["mla_moe_fp32_max_logit_err"] = phase_model(dev, ds2, 64,
+                                                       max_len=128)
+    mav = get_config("llama4-maverick-400b-a17b")
+    mav = dataclasses.replace(mav, n_layers=2, moe=dataclasses.replace(
+        mav.moe, d_expert=512))
+    RECORD["moe_fp32_max_logit_err"] = phase_model(dev, mav, 64,
+                                                   max_len=128)
     dense_launches = phase_dense_serving(dev)
     hybrid_launches = phase_hybrid_serving(dev)
+    t0 = time.perf_counter()
+    mla_launches = phase_mla_serving(dev)
+    phase_moe_serving(dev)
+    RECORD["moe_serving_s"] = time.perf_counter() - t0
     gemm_launches = phase_gemm(dev)
     RECORD["open_loop"] = phase_open_loop(dev)
     RECORD["lockstep"] = phase_sim(dev)
@@ -1825,6 +2012,8 @@ def main() -> int:
             hybrid_launches["decode_attention"],
         "flash_attention@recurrentgemma-2b":
             hybrid_launches["flash_attention"],
+        "flash_attention@deepseek-v2-lite-16b":
+            mla_launches["flash_attention"],
         "rglru_scan": hybrid_launches["rglru_scan"],
         "gemm_partial": gemm_launches["gemm_partial"],
         "systolic_gemm": gemm_launches["systolic_gemm"]}

@@ -57,16 +57,16 @@ _SIGNATURES = {
     "repro_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
                                _L, ctypes.c_float, _P],
-    # q, k, v, out, B, Hq, Hkv, S, Skv, dh, causal, window, q/k/v/o
+    # q, k, v, out, B, Hq, Hkv, S, Skv, dqk, dv, causal, window, q/k/v/o
     # strides (b, h, s) each, scale, stream; _f32 is the FFMA kernel
     # (flash_attention.cu), _bf16 the tensor-core one
     # (flash_attention_mma.cu)
     "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                                  _L, _L, ctypes.c_float, _P],
+                                  _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                  _L, _L, _L, ctypes.c_float, _P],
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
-                                   _L, _L, _L, _L, ctypes.c_float, _P],
+                                   _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
+                                   _L, _L, _L, _L, _L, ctypes.c_float, _P],
     # a, b, h0, out, B, S, D, channels, steps, stages, vec, stream (the
     # plan of rglru_scan.scan_plan)
     "repro_rglru_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

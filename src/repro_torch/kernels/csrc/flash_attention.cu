@@ -7,14 +7,14 @@
 // (_flash_kernel), and with a window the banded attention of
 // src/repro/models/attention.py::local_attention, for fp32.
 //
-// What bounds it on the H100: a causal pass over S tokens does ~2*S^2*dh
-// FLOP per query head on 4*S*dh values; in fp32 outside the tensor cores
+// What bounds it on the H100: a causal pass over S tokens does
+// ~S^2*(dqk+dv) FLOP per query head on S*(2*dqk+2*dv) values; in fp32 outside the tensor cores
 // (67 TFLOP/s) the 512-token prompt is operations-bound; the 8-token
 // serving prompt is launch-bound.
 //
 // What the design does about it, simply and right first: a grid of
 // (B*Hq, ceil(S/BQ)) blocks.  A block owns BQ query rows, one thread per
-// row, with the row's running max m, sum l and fp32 accumulator acc[DH] in
+// row, with the row's running max m, sum l and fp32 accumulator acc[DV] in
 // registers (the reference keeps them in VMEM scratch across its sequential
 // KV grid axis; here the KV loop runs inside the block).  It walks KV tiles
 // of BKV keys staged in shared memory, only up to its diagonal: KV tiles the
@@ -26,40 +26,45 @@
 // p = exp(s - m_new) * (s > NEG_INF*0.5), corr = exp(m - m_new).  GQA maps
 // query head h to KV head h / G.  Every tensor goes in through its strides,
 // so the model's (B,S,H,dh) q/k/v are passed as views; the ragged S edge
-// (an 8-token prompt fits no tile) is masked.  The tiles live in dynamic
-// shared memory: at dh 256 they take 65 KB, over the 48 KB a static array
-// may hold.  At dh 256 acc[256] does not fit in registers and spills to
-// local memory (ptxas reports it); the parity path accepts that.
+// (an 8-token prompt fits no tile) is masked.  Q and K rows are DQK wide,
+// V rows and the accumulator DV wide: MLA's prefill has dqk 192 and dv 128
+// (its smoke config 24 and 16), the other families dqk == dv; the scale is
+// the caller's (dqk ** -0.5).  The tiles live in dynamic shared memory: at
+// dh 256 they take 65 KB, over the 48 KB a static array may hold.  At
+// dh 256 acc[256] does not fit in registers and spills to local memory
+// (ptxas reports it); the parity path accepts that.
 #include "common.cuh"
 
 using namespace repro;
 
 namespace {
 
-template <int DH> struct Tile {
-  // 64 query rows and 32 keys per tile; dh 128 and 256 halve both, so a
-  // block's tiles stay at 33 KB (dh 128) and 65 KB (dh 256)
-  static constexpr int BQ = DH >= 128 ? 32 : 64;
-  static constexpr int BKV = DH >= 128 ? 16 : 32;
+template <int DQK, int DV> struct Tile {
+  // 64 query rows and 32 keys per tile; a head dim of 128 or more halves
+  // both, so a block's tiles stay at 33 KB (dh 128), 45 KB (192/128) and
+  // 65 KB (dh 256)
+  static constexpr int DMAX = DQK > DV ? DQK : DV;
+  static constexpr int BQ = DMAX >= 128 ? 32 : 64;
+  static constexpr int BKV = DMAX >= 128 ? 16 : 32;
   // q padded by one column: each thread reads its own row; k and v rows
   // are read by every thread at once
   static constexpr size_t SMEM =
-      sizeof(float) * ((size_t)BQ * (DH + 1) + 2 * (size_t)BKV * DH);
+      sizeof(float) * ((size_t)BQ * (DQK + 1) + (size_t)BKV * (DQK + DV));
 };
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(Tile<DH>::BQ)
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(Tile<DQK, DV>::BQ)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
              int S, int Skv, int causal, int window, i64 sqb, i64 sqh,
              i64 sqs, i64 skb, i64 skh, i64 sks, i64 svb, i64 svh, i64 svs,
              i64 sob, i64 soh, i64 sos, float scale) {
-  constexpr int BQ = Tile<DH>::BQ, BKV = Tile<DH>::BKV;
+  constexpr int BQ = Tile<DQK, DV>::BQ, BKV = Tile<DQK, DV>::BKV;
   extern __shared__ float smem[];
-  float(*qs)[DH + 1] = reinterpret_cast<float(*)[DH + 1]>(smem);
-  float(*ks)[DH] = reinterpret_cast<float(*)[DH]>(smem + BQ * (DH + 1));
-  float(*vs)[DH] = reinterpret_cast<float(*)[DH]>(smem + BQ * (DH + 1) +
-                                                  BKV * DH);
+  float(*qs)[DQK + 1] = reinterpret_cast<float(*)[DQK + 1]>(smem);
+  float(*ks)[DQK] = reinterpret_cast<float(*)[DQK]>(smem + BQ * (DQK + 1));
+  float(*vs)[DV] = reinterpret_cast<float(*)[DV]>(smem + BQ * (DQK + 1) +
+                                                  BKV * DQK);
   const int t = threadIdx.x;
   const int bh = blockIdx.x;
   const int b = bh / Hq, hq = bh % Hq, hk = hq / (Hq / Hkv);
@@ -67,17 +72,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qpos = q0 + t;
 
   const T* qb = q + b * sqb + hq * sqh;
-  for (int i = t; i < BQ * DH; i += BQ) {
-    const int r = i / DH, d = i % DH;
+  for (int i = t; i < BQ * DQK; i += BQ) {
+    const int r = i / DQK, d = i % DQK;
     qs[r][d] = (q0 + r < S) ? to_float(qb[(q0 + r) * sqs + d]) : 0.f;
   }
   const T* kb = k + b * skb + hk * skh;
   const T* vb = v + b * svb + hk * svh;
 
   float m = NEG_INF, l = 0.f;
-  float acc[DH];
+  float acc[DV];
 #pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
+  for (int d = 0; d < DV; ++d) acc[d] = 0.f;
 
   // live keys: below (block's last row + 1) when causal, the reference's
   // block-skipping rule with the block's own edge; with a window, from the
@@ -86,9 +91,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
   for (int k0 = kv_begin; k0 < kv_end; k0 += BKV) {
     __syncthreads();
-    for (int i = t; i < BKV * DH; i += BQ) {
-      const int r = i / DH, d = i % DH, kp = k0 + r;
+    for (int i = t; i < BKV * DQK; i += BQ) {
+      const int r = i / DQK, d = i % DQK, kp = k0 + r;
       ks[r][d] = kp < Skv ? to_float(kb[kp * sks + d]) : 0.f;
+    }
+    for (int i = t; i < BKV * DV; i += BQ) {
+      const int r = i / DV, d = i % DV, kp = k0 + r;
       vs[r][d] = kp < Skv ? to_float(vb[kp * svs + d]) : 0.f;
     }
     __syncthreads();
@@ -99,7 +107,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < BKV; ++j) {
       float dot = 0.f;
 #pragma unroll
-      for (int d = 0; d < DH; ++d) dot = fmaf(qs[t][d], ks[j][d], dot);
+      for (int d = 0; d < DQK; ++d) dot = fmaf(qs[t][d], ks[j][d], dot);
       const int kp = k0 + j;
       const bool live = kp < Skv && (!causal || kp <= qpos) &&
                         (window <= 0 || kp > qpos - window);
@@ -116,7 +124,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     l = l * corr + psum;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) {
+    for (int d = 0; d < DV; ++d) {
       float a = acc[d] * corr;
 #pragma unroll
       for (int j = 0; j < BKV; ++j) a = fmaf(s[j], vs[j][d], a);
@@ -129,20 +137,20 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* ob = o + b * sob + hq * soh + qpos * sos;
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < DH; ++d) ob[d] = from_float<T>(acc[d] * inv);
+    for (int d = 0; d < DV; ++d) ob[d] = from_float<T>(acc[d] * inv);
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int S, int Skv, int causal, int window,
            const i64* st, float scale, cudaStream_t s) {
-  constexpr int BQ = Tile<DH>::BQ;
-  constexpr size_t smem = Tile<DH>::SMEM;
-  cudaError_t e = allow_smem(flash_kernel<T, DH>, smem);
+  constexpr int BQ = Tile<DQK, DV>::BQ;
+  constexpr size_t smem = Tile<DQK, DV>::SMEM;
+  cudaError_t e = allow_smem(flash_kernel<T, DQK, DV>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * Hq, (S + BQ - 1) / BQ);
-  flash_kernel<T, DH><<<grid, BQ, smem, s>>>(
+  flash_kernel<T, DQK, DV><<<grid, BQ, smem, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hkv, S, Skv, causal,
       window, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       st[9], st[10], st[11], scale);
@@ -150,38 +158,39 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 template <typename T>
-int dispatch(int dh, const void* q, const void* k, const void* v, void* o,
-             int B, int Hq, int Hkv, int S, int Skv, int causal, int window,
-             const i64* st, float scale, cudaStream_t s) {
-#define REPRO_FLASH_CASE(DH)                                                 \
-  case DH:                                                                  \
-    return launch<T, DH>(q, k, v, o, B, Hq, Hkv, S, Skv, causal, window, st, \
-                         scale, s);
-  switch (dh) {
-    REPRO_FLASH_CASE(16)
-    REPRO_FLASH_CASE(32)
-    REPRO_FLASH_CASE(64)
-    REPRO_FLASH_CASE(128)
-    REPRO_FLASH_CASE(256)
-    default: return (int)cudaErrorInvalidValue;
-  }
+int dispatch(int dqk, int dv, const void* q, const void* k, const void* v,
+             void* o, int B, int Hq, int Hkv, int S, int Skv, int causal,
+             int window, const i64* st, float scale, cudaStream_t s) {
+  // the (dqk, dv) pairs: kernels/flash_attention.py::HEAD_DIMS
+#define REPRO_FLASH_CASE(DQK, DV)                                           \
+  if (dqk == DQK && dv == DV)                                               \
+    return launch<T, DQK, DV>(q, k, v, o, B, Hq, Hkv, S, Skv, causal, window, \
+                              st, scale, s);
+  REPRO_FLASH_CASE(16, 16)
+  REPRO_FLASH_CASE(32, 32)
+  REPRO_FLASH_CASE(64, 64)
+  REPRO_FLASH_CASE(128, 128)
+  REPRO_FLASH_CASE(256, 256)
+  REPRO_FLASH_CASE(192, 128)
+  REPRO_FLASH_CASE(24, 16)
 #undef REPRO_FLASH_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// fp32 only; dh in {16, 32, 64, 128, 256}; window 0 means none, > 0 needs
-// causal.  Strides are in elements, (batch, head, sequence) for q, k, v and
-// o; the last dimension is contiguous.
+// fp32 only; (dqk, dv) one of the pairs of dispatch; window 0 means none,
+// > 0 needs causal.  Strides are in elements, (batch, head, sequence) for
+// q, k, v and o; the last dimension is contiguous.
 extern "C" int repro_flash_attention_f32(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
-    int Hkv, int S, int Skv, int dh, int causal, int window, i64 sqb,
+    int Hkv, int S, int Skv, int dqk, int dv, int causal, int window, i64 sqb,
     i64 sqh, i64 sqs, i64 skb, i64 skh, i64 sks, i64 svb, i64 svh, i64 svs,
     i64 sob, i64 soh, i64 sos, float scale, void* stream) {
   const i64 st[12] = {sqb, sqh, sqs, skb, skh, sks,
                       svb, svh, svs, sob, soh, sos};
   cudaStream_t s = (cudaStream_t)stream;
   if (window > 0 && !causal) return (int)cudaErrorInvalidValue;
-  return dispatch<float>(dh, q, k, v, o, B, Hq, Hkv, S, Skv, causal, window,
-                         st, scale, s);
+  return dispatch<float>(dqk, dv, q, k, v, o, B, Hq, Hkv, S, Skv, causal,
+                         window, st, scale, s);
 }

@@ -7,8 +7,8 @@
 // kernel in flash_attention.cu: it is the parity path, and fp32 on the
 // tensor cores would mean TF32, which its tolerance does not allow.
 //
-// What bounds it on the H100: a causal pass over S tokens does ~2*S^2*dh
-// FLOP per query head on 4*S*dh values.  At the serving shapes (batch 1,
+// What bounds it on the H100: a causal pass over S tokens does
+// ~S^2*(dqk+dv) FLOP per query head on S*(2*dqk+2*dv) values.  At the serving shapes (batch 1,
 // a 512-token prompt) the bound is ~1.4-1.7 us, set by the bytes; what
 // holds a kernel back there is parallelism and latency (a few hundred
 // small blocks, each a serial walk over its KV tiles), not the mma rate.
@@ -28,6 +28,13 @@
 // two-stage ring, so the next tile's copy overlaps this tile's two mma
 // passes; rows are padded by 16 bytes, which makes every ldmatrix free of
 // bank conflicts.  At dh 256 the tiles take 84 KB of dynamic shared memory.
+//
+// Q and K rows are DQK wide, V rows and the output DV wide: MLA's prefill
+// (DeepSeek-V2) has dqk 192 = 128 + 64 rope and dv 128, its smoke config
+// 24 and 16; the other families dqk == dv.  m16n8k16 steps k by 16, so a
+// dqk that is no multiple of 16 (24) is zero-padded to the next one (32)
+// in shared memory: the copy of the missing 16-byte chunks is predicated
+// off, which zero-fills them, and zero columns add nothing to Q.K^T.
 //
 // Semantics kept exactly from _flash_kernel: s = dot * scale with the scale
 // applied to the fp32 product; keys live where kp < Skv, kp <= q (causal)
@@ -53,15 +60,22 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-template <int DH> struct Cfg {
-  static constexpr int WARPS = DH >= 256 ? 2 : 4;
+template <int DQK, int DV> struct Cfg {
+  static_assert(DQK % 8 == 0 && DV % 16 == 0, "16-byte rows, k-steps of 16");
+  static constexpr int DQKP = (DQK + 15) / 16 * 16;  // Q.K^T depth, padded
+  static_assert(DV <= DQKP, "the output is staged in the Q tile's rows");
+  static constexpr int WARPS = DQK >= 256 || DV >= 256 ? 2 : 4;
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int BQ = 16 * WARPS;               // query rows a block
-  static constexpr int BKV = DH >= 256 ? 32 : 64;     // keys a tile
-  static constexpr int LD = DH + 8;                   // padded row, elements
-  static constexpr int CPR = DH / 8;                  // 16-byte chunks a row
+  static constexpr int BKV = WARPS == 2 ? 32 : 64;    // keys a tile
+  static constexpr int LDQ = DQKP + 8;  // padded Q and K rows, elements
+  static constexpr int LDV = DV + 8;    // padded V rows
+  static constexpr int CPRQ = DQK / 8;  // 16-byte chunks of a Q or K row
+  static constexpr int CPRQP = DQKP / 8;  // the same with the zero padding
+  static constexpr int CPRV = DV / 8;   // 16-byte chunks of a V row
   // Q tile and two stages of K and V
-  static constexpr size_t SMEM = sizeof(bf16) * (size_t)LD * (BQ + 4 * BKV);
+  static constexpr size_t SMEM =
+      sizeof(bf16) * ((size_t)LDQ * (BQ + 2 * BKV) + (size_t)LDV * 2 * BKV);
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -115,22 +129,23 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&h);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(Cfg<DH>::THREADS)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(Cfg<DQK, DV>::THREADS)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int Hq,
                  int Hkv, int S, int Skv, int causal, int window, i64 sqb,
                  i64 sqh, i64 sqs, i64 skb, i64 skh, i64 sks, i64 svb,
                  i64 svh, i64 svs, i64 sob, i64 soh, i64 sos, float scale) {
-  using C = Cfg<DH>;
-  constexpr int BQ = C::BQ, BKV = C::BKV, LD = C::LD, CPR = C::CPR;
+  using C = Cfg<DQK, DV>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, LDQ = C::LDQ, LDV = C::LDV;
+  constexpr int CPRQ = C::CPRQ, CPRQP = C::CPRQP, CPRV = C::CPRV;
   constexpr int NT = C::THREADS;
   constexpr int NS = BKV / 8;  // score fragments (8 keys each) a warp
-  constexpr int NO = DH / 8;   // output fragments (8 columns each) a warp
+  constexpr int NO = DV / 8;   // output fragments (8 columns each) a warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
-  bf16* ks = qs + BQ * LD;                       // [2][BKV][LD]
-  bf16* vs = ks + 2 * BKV * LD;                  // [2][BKV][LD]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LDQ]
+  bf16* ks = qs + BQ * LDQ;                      // [2][BKV][LDQ]
+  bf16* vs = ks + 2 * BKV * LDQ;                 // [2][BKV][LDV]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x;
   const int b = bh / Hq, hq = bh % Hq, hk = hq / (Hq / Hkv);
@@ -142,10 +157,12 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * skb + hk * skh;
   const bf16* vb = v + b * svb + hk * svh;
 
-  for (int i = tid; i < BQ * CPR; i += NT) {
-    const int r = i / CPR, c = i % CPR;
-    const bool in = q0 + r < S;
-    cp_async16(smem_addr(qs + r * LD + c * 8),
+  // chunks c >= CPRQ are the zero padding of a dqk of no multiple of 16
+  constexpr bool PADDED = CPRQ != CPRQP;
+  for (int i = tid; i < BQ * CPRQP; i += NT) {
+    const int r = i / CPRQP, c = i % CPRQP;
+    const bool in = q0 + r < S && (!PADDED || c < CPRQ);
+    cp_async16(smem_addr(qs + r * LDQ + c * 8),
                in ? qb + (i64)(q0 + r) * sqs + c * 8 : qb, in);
   }
   // live keys: below (block's last row + 1) when causal; with a window,
@@ -154,16 +171,23 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
   const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV
                                         : 0;
+  // one pass over the wider of a K row and a V row; the tests on c fold
+  // away at compile time, and at dqk == dv they vanish
+  constexpr int CMAX = CPRQP > CPRV ? CPRQP : CPRV;
   auto load_kv = [&](int k0, int stage) {
-    bf16* kd = ks + stage * BKV * LD;
-    bf16* vd = vs + stage * BKV * LD;
-    for (int i = tid; i < BKV * CPR; i += NT) {
-      const int r = i / CPR, c = i % CPR, kp = k0 + r;
+    bf16* kd = ks + stage * BKV * LDQ;
+    bf16* vd = vs + stage * BKV * LDV;
+    for (int i = tid; i < BKV * CMAX; i += NT) {
+      const int r = i / CMAX, c = i % CMAX, kp = k0 + r;
       const bool in = kp < Skv;
-      cp_async16(smem_addr(kd + r * LD + c * 8),
-                 in ? kb + (i64)kp * sks + c * 8 : kb, in);
-      cp_async16(smem_addr(vd + r * LD + c * 8),
-                 in ? vb + (i64)kp * svs + c * 8 : vb, in);
+      if (c < CPRQP) {
+        const bool kin = in && (!PADDED || c < CPRQ);
+        cp_async16(smem_addr(kd + r * LDQ + c * 8),
+                   kin ? kb + (i64)kp * sks + c * 8 : kb, kin);
+      }
+      if (c < CPRV)
+        cp_async16(smem_addr(vd + r * LDV + c * 8),
+                   in ? vb + (i64)kp * svs + c * 8 : vb, in);
     }
   };
   if (n_tiles > 0) load_kv(kv_begin, 0);
@@ -182,9 +206,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // K as the B operand of QK^T (keys j..j+15, dh halves); V as the B
   // operand of PV, transposed (keys k halves, dh columns)
   const unsigned q_addr =
-      smem_addr(qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
-  const int k_off = ((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8;
-  const int v_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+      smem_addr(qs + (warp * 16 + (lane & 15)) * LDQ + (lane >> 4) * 8);
+  const int k_off =
+      ((lane & 7) + (lane >> 4) * 8) * LDQ + ((lane >> 3) & 1) * 8;
+  const int v_off =
+      ((lane & 7) + ((lane >> 3) & 1) * 8) * LDV + (lane >> 4) * 8;
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = kv_begin + t * BKV;
@@ -199,21 +225,22 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bool dead = (causal && k0 > qw + 15) ||
                       (window > 0 && k0 + BKV - 1 <= qw - window);
     if (!dead) {
-      const unsigned kst = smem_addr(ks + (t & 1) * BKV * LD + k_off);
-      const unsigned vst = smem_addr(vs + (t & 1) * BKV * LD + v_off);
+      const unsigned kst = smem_addr(ks + (t & 1) * BKV * LDQ + k_off);
+      const unsigned vst = smem_addr(vs + (t & 1) * BKV * LDV + v_off);
       float s[NS][4];
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
+      for (int kk = 0; kk < C::DQKP / 16; ++kk) {
         unsigned a[4];
         ldsm_x4(a, q_addr + kk * 16 * (unsigned)sizeof(bf16));
 #pragma unroll
         for (int jp = 0; jp < BKV / 16; ++jp) {
           unsigned bk[4];
-          ldsm_x4(bk, kst + (jp * 16 * LD + kk * 16) * (unsigned)sizeof(bf16));
+          ldsm_x4(bk,
+                  kst + (jp * 16 * LDQ + kk * 16) * (unsigned)sizeof(bf16));
           mma_bf16(s[2 * jp], a, bk[0], bk[1]);
           mma_bf16(s[2 * jp + 1], a, bk[2], bk[3]);
         }
@@ -264,10 +291,10 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
 #pragma unroll
-        for (int dp = 0; dp < DH / 16; ++dp) {
+        for (int dp = 0; dp < DV / 16; ++dp) {
           unsigned bv[4];
           ldsm_x4_trans(
-              bv, vst + (kk * 16 * LD + dp * 16) * (unsigned)sizeof(bf16));
+              bv, vst + (kk * 16 * LDV + dp * 16) * (unsigned)sizeof(bf16));
           mma_bf16(acc[2 * dp], pa[kk], bv[0], bv[1]);
           mma_bf16(acc[2 * dp + 1], pa[kk], bv[2], bv[3]);
         }
@@ -286,34 +313,34 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
-  bf16* ow = qs + warp * 16 * LD;
+  bf16* ow = qs + warp * 16 * LDQ;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
-    *reinterpret_cast<__nv_bfloat162*>(ow + g * LD + n * 8 + c2) =
+    *reinterpret_cast<__nv_bfloat162*>(ow + g * LDQ + n * 8 + c2) =
         __floats2bfloat162_rn(acc[n][0] * inv[0], acc[n][1] * inv[0]);
-    *reinterpret_cast<__nv_bfloat162*>(ow + (g + 8) * LD + n * 8 + c2) =
+    *reinterpret_cast<__nv_bfloat162*>(ow + (g + 8) * LDQ + n * 8 + c2) =
         __floats2bfloat162_rn(acc[n][2] * inv[1], acc[n][3] * inv[1]);
   }
   __syncwarp();
   bf16* ob = o + b * sob + hq * soh;
-  for (int i = lane; i < 16 * CPR; i += 32) {
-    const int r = i / CPR, c = i % CPR;
+  for (int i = lane; i < 16 * CPRV; i += 32) {
+    const int r = i / CPRV, c = i % CPRV;
     if (qw + r < S)
       *reinterpret_cast<uint4*>(ob + (i64)(qw + r) * sos + c * 8) =
-          *reinterpret_cast<const uint4*>(ow + r * LD + c * 8);
+          *reinterpret_cast<const uint4*>(ow + r * LDQ + c * 8);
   }
 }
 
-template <int DH>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int S, int Skv, int causal, int window,
            const i64* st, float scale, cudaStream_t s) {
-  using C = Cfg<DH>;
-  cudaError_t e = allow_smem(flash_mma_kernel<DH>, C::SMEM);
+  using C = Cfg<DQK, DV>;
+  cudaError_t e = allow_smem(flash_mma_kernel<DQK, DV>, C::SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * Hq, (S + C::BQ - 1) / C::BQ);
-  flash_mma_kernel<DH><<<grid, C::THREADS, C::SMEM, s>>>(
+  flash_mma_kernel<DQK, DV><<<grid, C::THREADS, C::SMEM, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, Hq, Hkv, S,
       Skv, causal, window, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], scale);
@@ -322,29 +349,31 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// bf16 only; dh in {16, 32, 64, 128, 256}; window 0 means none, > 0 needs
-// causal.  Strides are in elements, (batch, head, sequence) for q, k, v and
-// o; the last dimension is contiguous, and every row starts 16-byte aligned.
+// bf16 only; (dqk, dv) one of the pairs below; window 0 means none, > 0
+// needs causal.  Strides are in elements, (batch, head, sequence) for q, k,
+// v and o; the last dimension is contiguous, and every row starts 16-byte
+// aligned.
 extern "C" int repro_flash_attention_bf16(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
-    int Hkv, int S, int Skv, int dh, int causal, int window, i64 sqb,
+    int Hkv, int S, int Skv, int dqk, int dv, int causal, int window, i64 sqb,
     i64 sqh, i64 sqs, i64 skb, i64 skh, i64 sks, i64 svb, i64 svh, i64 svs,
     i64 sob, i64 soh, i64 sos, float scale, void* stream) {
   const i64 st[12] = {sqb, sqh, sqs, skb, skh, sks,
                       svb, svh, svs, sob, soh, sos};
   cudaStream_t s = (cudaStream_t)stream;
   if (window > 0 && !causal) return (int)cudaErrorInvalidValue;
-#define REPRO_FLASH_MMA_CASE(DH)                                             \
-  case DH:                                                                  \
-    return launch<DH>(q, k, v, o, B, Hq, Hkv, S, Skv, causal, window, st,   \
-                      scale, s);
-  switch (dh) {
-    REPRO_FLASH_MMA_CASE(16)
-    REPRO_FLASH_MMA_CASE(32)
-    REPRO_FLASH_MMA_CASE(64)
-    REPRO_FLASH_MMA_CASE(128)
-    REPRO_FLASH_MMA_CASE(256)
-    default: return (int)cudaErrorInvalidValue;
-  }
+  // the (dqk, dv) pairs: kernels/flash_attention.py::HEAD_DIMS
+#define REPRO_FLASH_MMA_CASE(DQK, DV)                                       \
+  if (dqk == DQK && dv == DV)                                               \
+    return launch<DQK, DV>(q, k, v, o, B, Hq, Hkv, S, Skv, causal, window,  \
+                           st, scale, s);
+  REPRO_FLASH_MMA_CASE(16, 16)
+  REPRO_FLASH_MMA_CASE(32, 32)
+  REPRO_FLASH_MMA_CASE(64, 64)
+  REPRO_FLASH_MMA_CASE(128, 128)
+  REPRO_FLASH_MMA_CASE(256, 256)
+  REPRO_FLASH_MMA_CASE(192, 128)
+  REPRO_FLASH_MMA_CASE(24, 16)
 #undef REPRO_FLASH_MMA_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -25,8 +25,9 @@ def gemm_partial_ref(a, b, acc, k_begin: int, k_end: int, bk: int):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """q (B,Hq,S,dh), k/v (B,Hkv,Skv,dh); ``window`` > 0 keeps the keys
-    k with q - window < k <= q."""
+    """q (B,Hq,S,dqk), k (B,Hkv,Skv,dqk), v (B,Hkv,Skv,dv) -> (B,Hq,S,dv);
+    the scale is dqk ** -0.5 (MLA's v head dim differs from its key's);
+    ``window`` > 0 keeps the keys k with q - window < k <= q."""
     B, Hq, S, dh = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     G = Hq // Hkv

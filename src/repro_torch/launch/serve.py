@@ -17,10 +17,20 @@ model serves the arrivals in wall-clock time on ``--device``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama4-maverick-400b-a17b-smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --lanes 2 --device cpu \
       --arch tinyllama-1.1b-smoke
   PYTHONPATH=src python -m repro_torch.launch.serve --arrivals poisson --virtual
   PYTHONPATH=src python -m repro_torch.launch.serve --arrivals poisson
+
+``--arch`` takes a config of the dense (tinyllama-1.1b, olmo-1b,
+phi4-mini-3.8b, qwen1.5-110b), hybrid (recurrentgemma-2b), ``moe``
+(llama4-maverick-400b-a17b) or ``mla_moe`` (deepseek-v2-lite-16b) family,
+or its ``-smoke`` cut.  One 80 GB card holds DeepSeek-V2-Lite whole (16.2 B
+parameters, 32.4 GB in bf16); full Maverick (397.7 B) fits no card, its
+smoke config runs anywhere.
 
 Parameters are random, from ``lm.init_params`` on a seeded generator; on
 the card the model computes in bf16 (``DEFAULT_RC``), on the CPU in fp32
@@ -53,14 +63,18 @@ from repro_torch.serving import (PROCESS_KINDS, FrontDoor, build_workload,
 WARMUP_TOKENS = 2
 
 
-def load_model(arch: str, device=None):
-    """(cfg, params, rc) with random parameters made on ``device`` from
-    seed 0: bf16 compute on the card, fp32 on the CPU."""
+def init_model(cfg, device=None):
+    """(cfg, params, rc) with random parameters for ``cfg`` made on
+    ``device`` from seed 0: bf16 compute on the card, fp32 on the CPU."""
     device = resolve_device(device)
-    cfg = get_config(arch)
     rc = CPU_RC if device.type == "cpu" else DEFAULT_RC
     gen = torch.Generator(device=device).manual_seed(0)
     return cfg, lm.init_params(cfg, gen, rc, device=device), rc
+
+
+def load_model(arch: str, device=None):
+    """``init_model`` of the config named ``arch``."""
+    return init_model(get_config(arch), device)
 
 
 def make_requests(cfg, rng, n_lo: int = 4, n_hi: int = 2,

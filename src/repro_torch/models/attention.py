@@ -1,18 +1,21 @@
-"""GQA and local attention for the dense and hybrid families (twin of
-the GQA and local subset of the reference's ``models/attention.py``).
+"""GQA, local and MLA attention for the dense, hybrid, ``moe`` and
+``mla_moe`` families (twin of the reference's ``models/attention.py``).
 
 In the reference these are jnp functions and the Pallas kernels are
 drop-in replacements nobody calls.  Here the swap is made: on a CUDA
 tensor ``flash_attention`` and ``local_attention`` run the flash kernel
 (the latter with a window) and ``decode_attention`` the flash-decoding
-kernel; on a CPU tensor they run the kernels' plain versions.
+kernel; on a CPU tensor they run the kernels' plain versions.  MLA's
+prefill runs the flash kernel with a value head dim (128) below the key's
+(192); its weight-absorbed decode is PyTorch operations, as the reference's
+is jnp outside any Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, rope_cos_sin
+from repro_torch.models.common import apply_rope, rmsnorm, rope_cos_sin
 
 NEG_INF = -1e30
 
@@ -23,10 +26,11 @@ def _split_heads(x, n_heads, dh):
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
                     block_q: int = 512, block_kv: int = 512, softcap=None):
-    """q (B,Sq,Hq,Dh), k/v (B,Skv,Hkv,Dh) -> (B,Sq,Hq,Dh).
+    """q (B,Sq,Hq,Dqk), k (B,Skv,Hkv,Dqk), v (B,Skv,Hkv,Dv) ->
+    (B,Sq,Hq,Dv), scaled by Dqk ** -0.5.
 
-    The dense family's prefill never passes ``q_offset`` or ``softcap``;
-    the kernel has neither, so both raise until a family needs them.
+    No family's prefill passes ``q_offset`` or ``softcap``; the kernel has
+    neither, so both raise until a caller needs them.
     """
     if q_offset != 0 or softcap is not None:
         raise NotImplementedError("q_offset and softcap are not ported "
@@ -90,3 +94,77 @@ def gqa_project_qkv(x, p, cfg, positions):
     cos, sin = rope_cos_sin(positions, dh, cfg.rope_theta)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def _mla_rope(cfg, positions):
+    """cos/sin (B,S,1,dr/2) of the MLA rope part."""
+    cos, sin = rope_cos_sin(positions, cfg.mla.qk_rope_dim, cfg.rope_theta)
+    return cos[:, :, None, :], sin[:, :, None, :]
+
+
+def mla_prefill_qkv(x, p, cfg, positions):
+    """x (B,S,D) -> q (B,S,H,dn+dr), decompressed k (B,S,H,dn+dr),
+    v (B,S,H,dv), and the compressed cache entries c (B,S,lora) and
+    k_rope (B,S,dr).  The one rope key of a position is broadcast to
+    every head."""
+    m, H = cfg.mla, cfg.n_heads
+    ckv = torch.matmul(x, p["w_dkv"].to(x.dtype))
+    c, kr = torch.split(ckv, [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    c = rmsnorm(c, p["c_norm"])
+    cos, sin = _mla_rope(cfg, positions)
+    kr = apply_rope(kr[:, :, None, :], cos, sin)[:, :, 0]
+    q = _split_heads(torch.matmul(x, p["w_q"].to(x.dtype)), H,
+                     m.qk_nope_dim + m.qk_rope_dim)
+    qn, qr = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    qr = apply_rope(qr, cos, sin)
+    k_nope = torch.einsum("bsl,lhn->bshn", c, p["w_uk"].to(x.dtype).reshape(
+        m.kv_lora_rank, H, m.qk_nope_dim))
+    v = torch.einsum("bsl,lhv->bshv", c, p["w_uv"].to(x.dtype).reshape(
+        m.kv_lora_rank, H, m.v_head_dim))
+    q_full = torch.cat([qn, qr], dim=-1)
+    k_full = torch.cat([k_nope, kr[:, :, None, :].expand(
+        qn.shape[:-1] + (m.qk_rope_dim,))], dim=-1)
+    return q_full, k_full, v, c, kr
+
+
+def mla_decode(x, p, cfg, c_cache, kr_cache, pos: int):
+    """Weight-absorbed MLA decode over the compressed cache.
+
+    x (B,D); c_cache (B,T,lora) and kr_cache (B,T,dr) are one layer's
+    cache, written in place at ``pos`` (the reference's one-hot select
+    returns new caches with only that position replaced).  Returns
+    out (B,D).  The scale is (dn + dr) ** -0.5, the decompressed key's.
+    """
+    m, H = cfg.mla, cfg.n_heads
+    B = x.shape[0]
+    ckv = torch.matmul(x, p["w_dkv"].to(x.dtype))
+    c, kr = torch.split(ckv, [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    c = rmsnorm(c, p["c_norm"])
+    cos, sin = _mla_rope(cfg, torch.full((B, 1), pos, device=x.device))
+    kr = apply_rope(kr[:, None, None, :], cos, sin)[:, 0, 0]
+    q = torch.matmul(x, p["w_q"].to(x.dtype)).reshape(
+        B, H, m.qk_nope_dim + m.qk_rope_dim)
+    qn, qr = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    qr = apply_rope(qr[:, None], cos, sin)[:, 0]
+    # absorb W_uk into q: scores_nope = (q_n W_uk^T) . c
+    w_uk = p["w_uk"].to(x.dtype).reshape(m.kv_lora_rank, H, m.qk_nope_dim)
+    q_abs = torch.einsum("bhn,lhn->bhl", qn, w_uk)
+    c_cache[:, pos] = c.to(c_cache.dtype)
+    kr_cache[:, pos] = kr.to(kr_cache.dtype)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    # fp32 products, as preferred_element_type=float32 asks
+    s = (torch.einsum("bhl,bsl->bhs", q_abs.float(), c_cache.float())
+         + torch.einsum("bhr,bsr->bhs", qr.float(), kr_cache.float())) * scale
+    live = torch.arange(c_cache.shape[1], device=x.device) <= pos
+    s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    pr = torch.softmax(s, dim=-1)
+    o_c = torch.einsum("bhs,bsl->bhl", pr.to(c_cache.dtype).float(),
+                       c_cache.float())
+    w_uv = p["w_uv"].to(x.dtype).reshape(m.kv_lora_rank, H, m.v_head_dim)
+    o = torch.einsum("bhl,lhv->bhv", o_c.to(x.dtype), w_uv)
+    return torch.einsum("bhv,hvd->bd", o, p["w_o"].to(x.dtype).reshape(
+        H, m.v_head_dim, -1))

@@ -99,7 +99,21 @@ def dense_init(generator: torch.Generator, shape, dtype, device,
                scale: float = 0.02):
     """scale * truncated normal on [-2, 2], drawn in fp32 (the reference's
     ``dense_init``; torch's generator gives other numbers than
-    ``jax.random`` from the same seed)."""
-    w = torch.empty(shape, dtype=torch.float32, device=device)
+    ``jax.random`` from the same seed) and cast to ``dtype``.  A stacked
+    leaf (3 or more dims) is drawn one 2-D slice at a time into its
+    ``dtype`` buffer, so its fp32 draw is never whole: the routed
+    experts' ``w1`` of DeepSeek-V2-Lite is 19.9 GB in fp32."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    _fill_trunc_normal(out, generator, scale)
+    return out
+
+
+def _fill_trunc_normal(out, generator, scale: float) -> None:
+    """Fill ``out`` in place, one 2-D slice of fp32 draws at a time."""
+    if out.dim() >= 3:
+        for sl in out:
+            _fill_trunc_normal(sl, generator, scale)
+        return
+    w = torch.empty(out.shape, dtype=torch.float32, device=out.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w * scale).to(dtype)
+    out.copy_(w.mul_(scale))

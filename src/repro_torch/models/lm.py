@@ -1,5 +1,6 @@
-"""Decoder LM, dense GQA and hybrid (RG-LRU + local attention) families
-(twin of those branches of the reference's ``models/lm.py``).
+"""Decoder LM: the dense GQA, hybrid (RG-LRU + local attention), ``moe``
+(groups of attn+dense, attn+MoE) and ``mla_moe`` (MLA attention + MoE)
+families (twin of those branches of the reference's ``models/lm.py``).
 
 Entry points are plain functions of (cfg, params, ...): ``init_params``,
 ``params_from_jax``, ``embed_inputs``, ``lm_logits``, ``init_cache``,
@@ -16,12 +17,18 @@ termination test need a device sync:
   ``rh0``/``rh1`` (G,B,d_rnn) fp32 and conv states ``rconv0``/``rconv1``
   (G,B,conv_width-1,d_rnn), the window ring ``wk``/``wv``
   (G,B,W,Hkv,dh), and for a tail of RG-LRU layers
-  ``"tail": {"rh", "rconv"}``.
+  ``"tail": {"rh", "rconv"}``;
+- moe: per group of ``moe_every`` (2) layers the two attention layers'
+  ``cka``/``cva`` and ``ckb``/``cvb`` (G,B,S,Hkv,dh);
+- mla_moe: MLA's compressed cache, ``cc`` (L,B,S,kv_lora) and the shared
+  rope key ``ckr`` (L,B,S,qk_rope).
 
 ``decode_step`` updates the cache tensors in place and returns a dict
 holding them with ``pos + 1``.
 
 Other families raise ``NotImplementedError`` until they are ported.
+The training side (``forward``, ``chunked_xent``, ``loss_fn``, the MoE
+metrics summed over layers) is not ported yet.
 """
 from __future__ import annotations
 
@@ -43,11 +50,11 @@ Params = Dict[str, Any]
 # parameter subtrees kept in the parameter dtype: the norms read their
 # scale as fp32 (``scale.astype(float32)``), so casting it to a bf16
 # compute dtype would change the result
-_NORM_KEYS = ("ln", "out_norm")
+_NORM_KEYS = ("ln", "out_norm", "c_norm")
 # leaves the reference creates and reads in fp32 whatever the dtypes
 # (the RG-LRU decay ``lam``, ``recurrent.py:36``)
 _FP32_KEYS = ("lam",)
-FAMILIES = ("dense", "hybrid")
+FAMILIES = ("dense", "hybrid", "moe", "mla_moe")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -77,6 +84,13 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _moe_groups(cfg: ArchConfig) -> int:
+    """Groups of (attn+dense, attn+MoE) layers of the ``moe`` family."""
+    every = cfg.moe.moe_every
+    assert cfg.n_layers % every == 0, (cfg.n_layers, every)
+    return cfg.n_layers // every
 
 
 def _hybrid_group_counts(cfg: ArchConfig) -> Tuple[int, int]:
@@ -126,6 +140,45 @@ def _mlp_params(cfg, g, L, dtype, device):
     }
 
 
+def _mla_params(cfg, g, L, dtype, device):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    return {
+        "ln": _stacked_norm(cfg, L, dtype, device),
+        "w_q": dense_init(g, (L, d, H * (m.qk_nope_dim + m.qk_rope_dim)),
+                          dtype, device),
+        "w_dkv": dense_init(g, (L, d, m.kv_lora_rank + m.qk_rope_dim),
+                            dtype, device),
+        "c_norm": torch.zeros((L, m.kv_lora_rank), dtype=dtype,
+                              device=device),
+        "w_uk": dense_init(g, (L, m.kv_lora_rank, H * m.qk_nope_dim), dtype,
+                           device),
+        "w_uv": dense_init(g, (L, m.kv_lora_rank, H * m.v_head_dim), dtype,
+                           device),
+        "w_o": dense_init(g, (L, H * m.v_head_dim, d), dtype, device,
+                          scale=_out_scale(cfg)),
+    }
+
+
+def _moe_params(cfg, g, L, dtype, device):
+    e = cfg.moe
+    d, E, f = cfg.d_model, e.num_experts, e.d_expert
+    p = {
+        "ln": _stacked_norm(cfg, L, dtype, device),
+        "router": dense_init(g, (L, d, E), dtype, device),
+        "w1": dense_init(g, (L, E, d, f), dtype, device),
+        "w3": dense_init(g, (L, E, d, f), dtype, device),
+        "w2": dense_init(g, (L, E, f, d), dtype, device,
+                         scale=_out_scale(cfg)),
+    }
+    if e.num_shared > 0:
+        sf = e.num_shared * f
+        p["shared"] = {"w1": dense_init(g, (L, d, sf), dtype, device),
+                       "w3": dense_init(g, (L, d, sf), dtype, device),
+                       "w2": dense_init(g, (L, sf, d), dtype, device)}
+    return p
+
+
 def _rglru_block_params(cfg, g, L, dtype, device):
     r = cfg.rglru
     d, dr, H = cfg.d_model, r.d_rnn, cfg.n_heads
@@ -158,32 +211,48 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     ``generator`` must live on ``device`` (default: the CUDA card).  The
     numbers differ from ``lm.init_params`` for the same seed; to compare
     with the reference, convert its parameters with ``params_from_jax``.
+
+    Every leaf is made in the compute dtype, each stacked leaf one 2-D
+    slice at a time (``dense_init``), so a bf16 model never holds its
+    fp32 draw: DeepSeek-V2-Lite is 32.4 GB in bf16 and would need 64.8 GB
+    more in fp32.  The norm parameters (zeros or ones, exact in bf16) go
+    back to the parameter dtype at ``_place``; the values equal a draw
+    made in fp32 and cast once.
     """
     _check_family(cfg)
     device = resolve_device(device)
-    g, pd = generator, rc.param_dtype
+    g, wd = generator, rc.compute_dtype
     d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
     params: Params = {
-        "embed": dense_init(g, (V, d), pd, device),
-        "out_norm": norm_params(cfg.norm, d, pd, device),
+        "embed": dense_init(g, (V, d), wd, device),
+        "out_norm": norm_params(cfg.norm, d, wd, device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(g, (d, V), pd, device)
+        params["lm_head"] = dense_init(g, (d, V), wd, device)
     if cfg.family == "dense":
-        params["blocks"] = {"attn": _attn_params(cfg, g, L, pd, device),
-                            "mlp": _mlp_params(cfg, g, L, pd, device)}
+        params["blocks"] = {"attn": _attn_params(cfg, g, L, wd, device),
+                            "mlp": _mlp_params(cfg, g, L, wd, device)}
+    elif cfg.family == "moe":
+        G = _moe_groups(cfg)
+        params["blocks"] = {"attn_a": _attn_params(cfg, g, G, wd, device),
+                            "mlp": _mlp_params(cfg, g, G, wd, device),
+                            "attn_b": _attn_params(cfg, g, G, wd, device),
+                            "moe": _moe_params(cfg, g, G, wd, device)}
+    elif cfg.family == "mla_moe":
+        params["blocks"] = {"attn": _mla_params(cfg, g, L, wd, device),
+                            "moe": _moe_params(cfg, g, L, wd, device)}
     else:
         G, tail = _hybrid_group_counts(cfg)
         params["blocks"] = {
-            "rec0": _rglru_block_params(cfg, g, G, pd, device),
-            "mlp0": _mlp_params(cfg, g, G, pd, device),
-            "rec1": _rglru_block_params(cfg, g, G, pd, device),
-            "mlp1": _mlp_params(cfg, g, G, pd, device),
-            "attn": _attn_params(cfg, g, G, pd, device),
-            "mlp2": _mlp_params(cfg, g, G, pd, device),
+            "rec0": _rglru_block_params(cfg, g, G, wd, device),
+            "mlp0": _mlp_params(cfg, g, G, wd, device),
+            "rec1": _rglru_block_params(cfg, g, G, wd, device),
+            "mlp1": _mlp_params(cfg, g, G, wd, device),
+            "attn": _attn_params(cfg, g, G, wd, device),
+            "mlp2": _mlp_params(cfg, g, G, wd, device),
         }
-        params["tail"] = {"rec": _rglru_block_params(cfg, g, tail, pd, device),
-                          "mlp": _mlp_params(cfg, g, tail, pd, device)} \
+        params["tail"] = {"rec": _rglru_block_params(cfg, g, tail, wd, device),
+                          "mlp": _mlp_params(cfg, g, tail, wd, device)} \
             if tail else {}
     return _place(params, rc, device)
 
@@ -250,8 +319,35 @@ def _attn_full(cfg, rc, h, p, positions, *, window=None):
     return h + torch.matmul(o, p["wo"].to(o.dtype)), (k, v)
 
 
+def _mla_full(cfg, rc, h, p, positions):
+    """MLA prefill: decompressed keys and values through the flash kernel
+    (dqk 192 against dv 128 at full width).  Returns (h, (c, k_rope)),
+    the compressed cache entries."""
+    x = apply_norm(cfg.norm, h, p["ln"])
+    q, k, v, c, kr = attn_lib.mla_prefill_qkv(x, p, cfg, positions)
+    o = attn_lib.flash_attention(q, k, v, causal=True,
+                                 block_q=rc.flash_block_q,
+                                 block_kv=rc.flash_block_kv)
+    w_o = p["w_o"].to(o.dtype).reshape(cfg.n_heads, cfg.mla.v_head_dim, -1)
+    return h + torch.einsum("bshv,hvd->bsd", o, w_o), (c, kr)
+
+
 def _mlp_full(cfg, rc, h, p, act=ffn_lib.swiglu):
     return h + act(apply_norm(cfg.norm, h, p["ln"]), p)
+
+
+def _moe_nometrics(cfg, h, p):
+    """Routes each sequence of ``h`` (B,S,D) as its own row."""
+    y, _ = ffn_lib.moe_dispatch(apply_norm(cfg.norm, h, p["ln"]), p, cfg)
+    return h + y
+
+
+def _moe_decode(cfg, h, p):
+    """One decode step's MoE: the batch's B tokens routed as one row."""
+    B = h.shape[0]
+    x = apply_norm(cfg.norm, h, p["ln"])
+    y, _ = ffn_lib.moe_dispatch(x.reshape(1, B, -1), p, cfg)
+    return h + y.reshape(B, 1, -1)
 
 
 def _rglru_full(cfg, rc, h, p):
@@ -327,6 +423,14 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
     if cfg.family == "dense":
         cache = {"ck": z(cfg.n_layers, B, max_len, *kv),
                  "cv": z(cfg.n_layers, B, max_len, *kv)}
+    elif cfg.family == "moe":
+        G = _moe_groups(cfg)
+        cache = {k: z(G, B, max_len, *kv) for k in ("cka", "cva", "ckb",
+                                                      "cvb")}
+    elif cfg.family == "mla_moe":
+        m = cfg.mla
+        cache = {"cc": z(cfg.n_layers, B, max_len, m.kv_lora_rank),
+                 "ckr": z(cfg.n_layers, B, max_len, m.qk_rope_dim)}
     else:
         G, tail = _hybrid_group_counts(cfg)
         r = cfg.rglru
@@ -353,17 +457,17 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
             rc: RuntimeConfig = DEFAULT_RC, max_len: Optional[int] = None):
     """Full-sequence pass that also builds the decode cache.
 
-    Returns (last_logits, cache).  Dense caches are padded to ``max_len``
-    if given and longer than the prompt.  The hybrid cache is not: its
-    window ring has ``window`` slots whatever the prompt, as in the
-    reference (``lm.py:329-339,714-715``).
+    Returns (last_logits, cache).  Dense, moe and mla_moe caches are
+    padded to ``max_len`` if given and longer than the prompt.  The
+    hybrid cache is not: its window ring has ``window`` slots whatever
+    the prompt, as in the reference (``lm.py:329-339,714-719``).
     """
     h = embed_inputs(cfg, params, batch, rc)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
     blocks = params["blocks"]
+    T = max_len if (max_len is not None and max_len > S) else S
     if cfg.family == "dense":
-        T = max_len if (max_len is not None and max_len > S) else S
         cache = init_cache(cfg, B, T, rc, h.device)
         for i in range(cfg.n_layers):
             p = _layer(blocks, i)
@@ -371,6 +475,26 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
             cache["ck"][i, :, :S] = k
             cache["cv"][i, :, :S] = v
             h = _mlp_full(cfg, rc, h, p["mlp"])
+    elif cfg.family == "moe":
+        cache = init_cache(cfg, B, T, rc, h.device)
+        for i in range(_moe_groups(cfg)):
+            p = _layer(blocks, i)
+            h, (k, v) = _attn_full(cfg, rc, h, p["attn_a"], positions)
+            cache["cka"][i, :, :S] = k
+            cache["cva"][i, :, :S] = v
+            h = _mlp_full(cfg, rc, h, p["mlp"])
+            h, (k, v) = _attn_full(cfg, rc, h, p["attn_b"], positions)
+            cache["ckb"][i, :, :S] = k
+            cache["cvb"][i, :, :S] = v
+            h = _moe_nometrics(cfg, h, p["moe"])
+    elif cfg.family == "mla_moe":
+        cache = init_cache(cfg, B, T, rc, h.device)
+        for i in range(cfg.n_layers):
+            p = _layer(blocks, i)
+            h, (c, kr) = _mla_full(cfg, rc, h, p["attn"], positions)
+            cache["cc"][i, :, :S] = c
+            cache["ckr"][i, :, :S] = kr
+            h = _moe_nometrics(cfg, h, p["moe"])
     else:
         G, n_tail = _hybrid_group_counts(cfg)
         W = cfg.rglru.window
@@ -414,16 +538,32 @@ def decode_step(cfg: ArchConfig, params: Params, tokens, cache,
     h = embed_inputs(cfg, params, {"tokens": tokens[:, None]}, rc)
     positions = torch.full((B, 1), pos, device=h.device)
     blocks = params["blocks"]
+    c = cache
     if cfg.family == "dense":
         for i in range(cfg.n_layers):
             p = _layer(blocks, i)
-            h = _attn_decode(cfg, rc, h, p["attn"], cache["ck"][i],
-                             cache["cv"][i], pos, positions)
+            h = _attn_decode(cfg, rc, h, p["attn"], c["ck"][i], c["cv"][i],
+                             pos, positions)
             h = _mlp_full(cfg, rc, h, p["mlp"])
+    elif cfg.family == "moe":
+        for i in range(_moe_groups(cfg)):
+            p = _layer(blocks, i)
+            h = _attn_decode(cfg, rc, h, p["attn_a"], c["cka"][i],
+                             c["cva"][i], pos, positions)
+            h = _mlp_full(cfg, rc, h, p["mlp"])
+            h = _attn_decode(cfg, rc, h, p["attn_b"], c["ckb"][i],
+                             c["cvb"][i], pos, positions)
+            h = _moe_decode(cfg, h, p["moe"])
+    elif cfg.family == "mla_moe":
+        for i in range(cfg.n_layers):
+            p = _layer(blocks, i)
+            x = apply_norm(cfg.norm, h, p["attn"]["ln"])
+            h = h + attn_lib.mla_decode(x[:, 0], p["attn"], cfg, c["cc"][i],
+                                        c["ckr"][i], pos)[:, None]
+            h = _moe_decode(cfg, h, p["moe"])
     else:
         G, n_tail = _hybrid_group_counts(cfg)
         geglu = ffn_lib.geglu
-        c = cache
         for i in range(G):
             p = _layer(blocks, i)
             h = _rglru_decode(cfg, rc, h, p["rec0"], c["rh0"][i],

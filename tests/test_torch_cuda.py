@@ -238,9 +238,11 @@ def test_flash_attention_window_dh256(gen, S, window, dtype, tol):
 
 
 BF16_TOL = 2e-2
+# the square (dqk == dv) pairs, by their head dim
+SQUARE_DIMS = [d for d, e in HEAD_DIMS if d == e]
 
 
-@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("dh", SQUARE_DIMS)
 @pytest.mark.parametrize("S", [8, 100])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bf16_tensor_core_kernel_every_head_dim(gen, dh, S, causal):
@@ -256,7 +258,7 @@ def test_flash_bf16_tensor_core_kernel_every_head_dim(gen, dh, S, causal):
         <= BF16_TOL
 
 
-@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("dh", SQUARE_DIMS)
 @pytest.mark.parametrize("B,Hq,Hkv", [(1, 4, 1), (2, 4, 4)])
 def test_flash_bf16_window_every_head_dim(gen, dh, B, Hq, Hkv):
     """A window that cuts the band, MQA and MHA, batch 2."""
@@ -267,6 +269,44 @@ def test_flash_bf16_window_every_head_dim(gen, dh, B, Hq, Hkv):
     out = flash_attention_tpu(q, k, v, window=64, block_q=300,
                               block_kv=300)
     assert _err(out, ref.flash_attention_ref(q, k, v, window=64)) <= BF16_TOL
+
+
+def _nan_framed(gen, B, S, H, D, dtype):
+    """A (B,H,S,D) view of random values inside a NaN frame: one more
+    sequence row, one more head and 8 more columns than the view holds
+    (8 keeps bf16 rows 16-byte aligned), so a kernel that reads past the
+    view returns NaN."""
+    buf = torch.full((B, S + 1, H + 1, D + 8), float("nan"), device="cuda",
+                     dtype=dtype)
+    view = buf[:, :S, :H, :D]
+    view.copy_(_randn(gen, B, S, H, D, dtype=dtype))
+    return view.transpose(1, 2)
+
+
+@pytest.mark.parametrize("dqk,dv", [p for p in HEAD_DIMS if p[0] != p[1]])
+@pytest.mark.parametrize("S", [8, 100, 512])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_flash_mla_head_dims_inside_a_nan_frame(gen, dqk, dv, S, dtype, tol):
+    """MLA's prefill shapes: the value head dim below the key's (DeepSeek-
+    V2-Lite's 192/128, its smoke config's 24/16; 16 heads, MHA), causal,
+    a ragged S, every view framed in NaN.  At 24 the tensor-core kernel
+    pads the key dim to 32 with zero columns it must not read from the
+    frame."""
+    H = 16 if dqk == 192 else 4
+    q = _nan_framed(gen, 1, S, H, dqk, dtype)
+    k = _nan_framed(gen, 1, S, H, dqk, dtype)
+    v = _nan_framed(gen, 1, S, H, dv, dtype)
+    out = flash_attention_tpu(q, k, v)
+    assert out.dtype == dtype and out.shape == (1, H, S, dv)
+    assert bool(torch.isfinite(out).all())
+    assert _err(out, ref.flash_attention_ref(q, k, v)) <= tol
+
+
+def test_flash_refuses_a_pair_it_does_not_instantiate(gen):
+    q = _randn(gen, 1, 2, 8, 64).transpose(1, 2)
+    with pytest.raises(ValueError):
+        flash_attention_tpu(q, q, q[..., :32])
 
 
 # (B, Hkv, G, dh, S): TinyLlama, recurrentgemma-2b's ring, B*Hkv > 1, MHA,

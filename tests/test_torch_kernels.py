@@ -107,6 +107,22 @@ def test_flash_attention_sweep(B, Hq, Hkv, S, dh, bq, bkv):
     np.testing.assert_allclose(_np(out), _np(want), atol=5e-5)
 
 
+@pytest.mark.parametrize("B,H,S,dqk,dv", [(2, 4, 16, 24, 16),
+                                           (1, 2, 64, 192, 128)])
+def test_flash_attention_with_a_narrower_value_head(B, H, S, dqk, dv):
+    """MLA's prefill pairs, whose v head dim is below the key's: the
+    wrapper's CPU path against the reference's plain version (its Pallas
+    kernel reshapes v to the key's head dim, so it takes no such pair);
+    the scale is dqk ** -0.5 on both sides."""
+    jq, tq = _pair(_normal((B, H, S, dqk), 0), "f32")
+    jk, tk = _pair(_normal((B, H, S, dqk), 1), "f32")
+    jv, tv = _pair(_normal((B, H, S, dv), 2), "f32")
+    out = flash_attention_tpu(tq, tk, tv)
+    assert out.shape == (B, H, S, dv)
+    np.testing.assert_allclose(_np(out), _np(jref.flash_attention_ref(
+        jq, jk, jv)), atol=5e-5)
+
+
 @pytest.mark.parametrize("pos", [0, 17, 255])
 @pytest.mark.parametrize("B,Hq,Hkv,S,dh", [(2, 8, 2, 256, 64),
                                            (1, 4, 4, 512, 32)])
@@ -204,6 +220,23 @@ def test_ctypes_signatures_match_the_c_entry_points():
     declared = {name: [kind[t] for t in argtypes]
                 for name, argtypes in _build._SIGNATURES.items()}
     assert declared == _c_entry_points()
+
+
+@pytest.mark.parametrize("src,macro", [
+    ("flash_attention.cu", "REPRO_FLASH_CASE"),
+    ("flash_attention_mma.cu", "REPRO_FLASH_MMA_CASE")])
+def test_flash_pair_table_matches_the_kernel_dispatch(src, macro):
+    """``HEAD_DIMS`` lists exactly the (dqk, dv) pairs each flash kernel's
+    dispatch instantiates, read from its source."""
+    import re
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    text = (_build.CSRC / src).read_text()
+    cases = re.findall(r"^\s*%s\((\d+), (\d+)\)\s*$" % macro, text,
+                       re.MULTILINE)
+    pairs = [(int(a), int(b)) for a, b in cases]
+    assert len(pairs) == len(set(pairs))
+    assert set(pairs) == set(HEAD_DIMS)
+    assert (192, 128) in pairs and (24, 16) in pairs
 
 
 @pytest.mark.parametrize("dtype,offset,ok", [

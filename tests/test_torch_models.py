@@ -202,7 +202,55 @@ def test_init_cache_matches_reference():
     assert tcache["ck"].dtype == torch.float32 and tcache["pos"] == 0
 
 
-def test_other_families_are_not_ported():
-    tc = dataclasses.replace(get_config(ARCH), family="moe")
+@pytest.mark.parametrize("family", ["xlstm", "vlm", "audio"])
+def test_other_families_are_not_ported(family):
+    tc = dataclasses.replace(get_config(ARCH), family=family)
     with pytest.raises(NotImplementedError):
         lm.init_params(tc, torch.Generator(), device="cpu")
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "phi4-mini-3.8b",
+                                  "qwen1.5-110b", "deepseek-v2-lite-16b",
+                                  "llama4-maverick-400b-a17b"])
+def test_ported_configs_match_the_reference(name):
+    for n in (name, name + "-smoke"):
+        jc, tc = j_get_config(n), get_config(n)
+        assert dataclasses.asdict(tc) == dataclasses.asdict(jc), n
+        assert tc.dh == jc.dh
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b-smoke", "phi4-mini-3.8b-smoke",
+                                  "qwen1.5-110b-smoke"])
+def test_dense_variants_prefill_then_four_decode_steps(arch):
+    """The dense variants through the dense code: olmo's non-parametric
+    layernorm and MHA, phi4-mini's untied head, qwen's QKV biases (made
+    non-zero here; the reference initialises them to zero) and rope
+    theta 1e6.  Batch 2, logits and caches at every step."""
+    jc, tc = j_get_config(arch), get_config(arch)
+    jp = j_lm.init_params(jc, jax.random.PRNGKey(1), j_common.CPU_RC)
+    tree = jax.tree_util.tree_map(np.asarray, jp)
+    if tc.qkv_bias:
+        attn = tree["blocks"]["attn"]
+        for i, b in enumerate(("bq", "bk", "bv")):
+            attn[b] = 0.5 * _normal(attn[b].shape, 20 + i)
+        jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    tp = lm.params_from_jax(tc, tree, common.CPU_RC, device="cpu")
+    prompt = np.random.default_rng(4).integers(0, tc.vocab, (2, 9),
+                                               dtype=np.int32)
+    jlog, jcache = j_lm.prefill(jc, jp, {"tokens": jnp.asarray(prompt)},
+                                j_common.CPU_RC, max_len=16)
+    tlog, tcache = lm.prefill(tc, tp, {"tokens": torch.from_numpy(prompt)},
+                              common.CPU_RC, max_len=16)
+    _close(tlog, jlog)
+    jdec = jax.jit(lambda p, t, c: j_lm.decode_step(jc, p, t, c,
+                                                    j_common.CPU_RC))
+    tok = prompt[:, -1].copy()
+    for _ in range(4):
+        jlog, jcache = jdec(jp, jnp.asarray(tok), jcache)
+        tlog, tcache = lm.decode_step(tc, tp, torch.from_numpy(tok), tcache,
+                                      common.CPU_RC)
+        _close(tlog, jlog)
+        tok = np.array(jnp.argmax(jlog, axis=-1), np.int32)
+        assert torch.argmax(tlog, dim=-1).tolist() == tok.tolist()
+    _close(tcache["ck"], jcache["ck"])
+    _close(tcache["cv"], jcache["cv"])

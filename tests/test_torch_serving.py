@@ -2,8 +2,10 @@
 model-backed scenarios of tests/test_serving.py (TestMESCServing x3,
 TestMultiLaneServing x2): same step order, same generated tokens, same
 saves and preemptions, and an empty arena at the end.  Both servers run
-tinyllama-1.1b-smoke and recurrentgemma-2b-smoke in fp32 on the CPU with
-the same parameters (the reference's, converted by ``params_from_jax``)."""
+tinyllama-1.1b-smoke, recurrentgemma-2b-smoke, deepseek-v2-lite-16b-smoke
+(MLA + MoE) and llama4-maverick-400b-a17b-smoke (MoE) in fp32 on the CPU
+with the same parameters (the reference's, converted by
+``params_from_jax``)."""
 import dataclasses
 from typing import Any
 
@@ -25,6 +27,8 @@ from repro_torch.models.common import CPU_RC
 
 ARCH = "tinyllama-1.1b-smoke"
 HYBRID = "recurrentgemma-2b-smoke"
+MLA_MOE = "deepseek-v2-lite-16b-smoke"
+MOE = "llama4-maverick-400b-a17b-smoke"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,7 +176,8 @@ SCENARIOS = [hi_preempts_lo, non_preemptive_runs_to_completion,
 
 # the tinyllama cases keep their bare scenario ids
 CASES = [pytest.param(f, ARCH, id=f.__name__) for f in SCENARIOS] + \
-    [pytest.param(f, HYBRID, id=f"{f.__name__}-{HYBRID}") for f in SCENARIOS]
+    [pytest.param(f, a, id=f"{f.__name__}-{a}") for a in (HYBRID, MLA_MOE, MOE)
+     for f in SCENARIOS]
 
 
 @pytest.mark.parametrize("scenario,arch", CASES)
@@ -231,6 +236,40 @@ def test_eviction_moves_every_leaf_of_a_hybrid_cache():
     srv._restore(a)
     assert a.resident and set(_leaf_devices(a.cache)) == {"meta"}
     assert a.cache["pos"] == 9
+
+
+def test_eviction_moves_an_mla_cache_to_host_and_back():
+    """DeepSeek-V2's compressed cache (``cc``, ``ckr``) leaves the device
+    on a save and comes back on a restore (``meta`` stands in for a
+    second device), and a request served across a save gives the tokens
+    of one served alone."""
+    s = _sides(MLA_MOE)["torch"]
+    srv = s.serving.MESCServer(s.cfg, s.params, max_len=32, resident_slots=1)
+    a = _req(s, 0, "LO", 1)
+    srv.submit(a)
+    srv.step()
+    assert set(a.cache) == {"cc", "ckr", "pos"}
+    srv._evict(a)
+    assert a.saves == 1 and set(_leaf_devices(a.cache)) == {"cpu"}
+    assert len(_leaf_devices(a.cache)) == 2
+    srv.device = torch.device("meta")
+    srv._restore(a)
+    assert a.resident and set(_leaf_devices(a.cache)) == {"meta"}
+    assert a.cache["pos"] == 9
+    # served with one resident slot (b preempts a, a is saved and
+    # restored) against a alone
+    srv = s.serving.MESCServer(s.cfg, s.params, max_len=32, resident_slots=1)
+    a, b = _req(s, 0, "LO", 1), _req(s, 1, "LO", 0)
+    srv.submit(a)
+    srv.step()
+    srv.submit(b)
+    srv.run()
+    assert a.saves == 1 and a.done and b.done
+    solo = s.serving.MESCServer(s.cfg, s.params, max_len=32)
+    alone = _req(s, 0, "LO", 1)
+    solo.submit(alone)
+    solo.run()
+    assert a.generated == alone.generated
 
 
 def test_heuristics_and_mode_severity_are_the_reference_tables():
