@@ -23,8 +23,10 @@ and then, failing on the first phase that goes wrong:
    DeepSeek-V2-Lite's MLA prefill shapes (16 heads, q/k head dim 192
    against v 128, and the smoke config's 24/16; bf16 and fp32; a 512-token
    and a ragged 300-token prompt; every operand a view inside a NaN
-   frame); the bf16 flash kernel at every (dqk, dv) pair it instantiates;
-   decode at the edges of
+   frame); flash and decode at LLaVA-NeXT-34B's GQA 56/8 at dh 128 (G 7:
+   decode head groups of 4 + 3) and MusicGen-large's MHA 32/32 at dh 64
+   (G 1), fp32 and bf16, every operand inside a NaN frame; the bf16 flash
+   kernel at every (dqk, dv) pair it instantiates; decode at the edges of
    its split plan's chunks, each call made twice and required to repeat
    bit for bit, and one decode call profiled to be one kernel launch;
 3. checks full-width TinyLlama-1.1B, and recurrentgemma-2b cut to 5
@@ -32,8 +34,12 @@ and then, failing on the first phase that goes wrong:
    512-token prompt, in fp32, teacher-forced, on the card (kernels)
    against the CPU (plain versions); then, with 64-token prompts,
    DeepSeek-V2-Lite cut to 2 layers and one Llama-4-Maverick group at
-   full width with its experts cut to 8, each MoE call required to
-   choose the same experts on both sides before the logits are compared;
+   full width with each expert's hidden width cut to 512, each MoE call
+   required to choose the same experts on both sides before the logits
+   are compared; then xlstm-125m whole with a 512-token (chunkwise mLSTM)
+   and an 8-token (parallel) prompt, llava-next-34b cut to 2 layers with
+   64 patch embeddings before 64 text tokens, and musicgen-large cut to 4
+   layers with a 64-token, 4-codebook prompt;
 4. serves full-width TinyLlama-1.1B and full-width recurrentgemma-2b in
    bf16 through the port's MESC server (the batch drive of
    ``repro_torch.launch.serve``), checking the step order against the
@@ -49,11 +55,21 @@ and then, failing on the first phase that goes wrong:
    27 times a prefill, no decode-attention launch: MLA's decode has no
    kernel), its context move and decode step profiled, and one
    full-width Llama-4-Maverick group (attn + dense, attn + 128-expert
-   MoE; 18.5 B parameters) under MESC and non-preemptive serving;
+   MoE; 18.5 B parameters) under MESC and non-preemptive serving; then
+   full-width, full-depth xlstm-125m under MESC and non-preemptive
+   serving with one resident slot (every saved request's tokens equal a
+   solo replay; no kernel launch), llava-next-34b (60 layers, 34.4 B
+   parameters, its peak card memory recorded) under MESC and
+   non-preemptive serving and one request of 576 patch embeddings and 448
+   text tokens through prefill and 8 decode steps, and musicgen-large (48
+   layers) through a 512-token, 4-codebook prefill and 16 greedy decode
+   steps (not served: its tokens are (B, S, K)); each with its context
+   move and a decode step profiled;
 5. runs the preemptible GEMM (``repro_torch.launch.preemptible_gemm``);
 6. times each kernel at its main path's shapes against its plain version,
    one PyTorch library call (where one computes the same function) and
-   its bound on the card, and the scan plan's alternatives (channels x
+   its bound on the card (flash and decode also at LLaVA-NeXT-34B's and
+   MusicGen-large's shapes), and the scan plan's alternatives (channels x
    steps x stages) at the hybrid's 512-token prefill;
 7. (run after 5, before 6) open-loop serving: (a) the 16 points of the
    reference's fig12 smoke grid through ``repro_torch.serving.fig12``,
@@ -368,6 +384,7 @@ def phase_kernels(dev):
                         ref.flash_attention_ref(q, k, v, causal=causal), 5e-5)
     phase_hybrid_kernels(dev, gen)
     phase_mla_kernels(dev, gen)
+    phase_family_kernels(dev, gen)
     phase_attention_edges(dev, gen)
     torch.cuda.synchronize()
 
@@ -542,6 +559,50 @@ def phase_mla_kernels(dev, gen):
                         ATTN_TOL[dt])
 
 
+# (name, Hq, Hkv, dh, S): the head layouts of the vlm and audio families'
+# prefills and decode caches (LLaVA-NeXT-34B's GQA group of 7, MusicGen's
+# MHA at dh 64); decode runs on a 1024-slot cache
+FAMILY_SHAPES = (("llava-next-34b", 56, 8, 128, 1024),
+                 ("musicgen-large", 32, 32, 64, 512))
+
+
+def phase_family_kernels(dev, gen):
+    """Flash and decode at LLaVA-NeXT-34B's and MusicGen-large's head
+    layouts against their plain versions, fp32 and bf16, every operand a
+    view inside a NaN frame: causal flash at the prefill lengths (1024 and
+    512); decode at G 7 (two head groups, 4 + 3) and G 1 at 0, the split
+    plan's first chunk edge, 535 and 1023, each call twice and
+    bit-identical."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import (decode_attention_tpu,
+                                                      split_plan)
+    from repro_torch.kernels.flash_attention import flash_attention_tpu
+    for name, Hq, Hkv, dh, S in FAMILY_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            q = _nan_framed((1, S, Hq, dh), gen, dt)
+            k = _nan_framed((1, S, Hkv, dh), gen, dt)
+            v = _nan_framed((1, S, Hkv, dh), gen, dt)
+            out = flash_attention_tpu(q, k, v)
+            assert out.shape == (1, Hq, S, dh), out.shape
+            check_close(f"flash {name} q 1x{Hq}x{S}x{dh} kv 1x{Hkv}x{S}x{dh}"
+                        f" {dt} causal (NaN frame)", out,
+                        ref.flash_attention_ref(q, k, v), ATTN_TOL[dt])
+            qd = _nan_framed((1, 1, Hq, dh), gen, dt)[:, :, 0]
+            kc = _nan_framed((1, 1024, Hkv, dh), gen, dt)
+            vc = _nan_framed((1, 1024, Hkv, dh), gen, dt)
+            chunk, _ = split_plan(1, Hkv, 1024, Hq // Hkv, dh,
+                                  itemsize=qd.element_size())
+            for pos in sorted({0, chunk - 1, chunk, 535, 1023}):
+                got = decode_attention_tpu(qd, kc, vc, pos)
+                assert torch.equal(got, decode_attention_tpu(qd, kc, vc,
+                                                             pos)), pos
+                check_close(f"decode {name} q 1x{Hq}x{dh} cache "
+                            f"1x{Hkv}x1024x{dh} G {Hq // Hkv} pos {pos} {dt} "
+                            "(NaN frame, twice, bit-identical)", got,
+                            ref.decode_attention_ref(qd, kc, vc, pos),
+                            ATTN_TOL[dt])
+
+
 def phase_scan_kernel(dev, gen):
     """The RG-LRU scan bit for bit (max error 0) against its plain version:
     the test_rglru_kernel_sweep shapes, recurrentgemma-2b's 512- and
@@ -699,26 +760,62 @@ def _same_experts(what, cpu_routes, dev_routes) -> float:
     return low
 
 
-def phase_model(dev, cfg, prompt_len, max_len=None):
+def path_launches(cfg) -> tuple:
+    """(flash launches a prefill, decode-attention launches a decode step,
+    scan launches a prefill) of ``cfg``'s path: one flash launch per
+    attention layer, one decode launch per attention layer but for MLA's
+    (PyTorch operations, no kernel), one scan launch per RG-LRU layer;
+    xLSTM's cells launch none of the kernels."""
+    from repro_torch.configs.base import _pattern_for
+    if cfg.family == "xlstm":
+        return 0, 0, 0
+    pattern = _pattern_for(cfg)
+    n_attn = pattern.count("attn")
+    return (n_attn, 0 if cfg.family == "mla_moe" else n_attn,
+            pattern.count("rglru"))
+
+
+def zero_tokens(cfg, *shape):
+    """Zero token ids of ``shape``, with the audio family's codebook dim
+    appended."""
+    if cfg.family == "audio":
+        shape += (cfg.n_codebooks,)
+    return torch.zeros(shape, dtype=torch.long)
+
+
+def model_batch(cfg, prompt_len, rng, n_vis=0):
+    """A batch of one prompt of ``prompt_len`` text tokens from ``rng``:
+    (1, S, K) codebook ids for the audio family, and for the vlm family
+    ``n_vis`` standard normal patch embeddings before them."""
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, zero_tokens(cfg, 1, prompt_len).shape, dtype=np.int32))}
+    if n_vis:
+        batch["vis_embeds"] = torch.from_numpy(
+            rng.standard_normal((1, n_vis, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def phase_model(dev, cfg, prompt_len, max_len=None, n_vis=0):
     """``cfg`` at full width in fp32, card (kernels) against CPU (plain
     versions), teacher-forced: prefill, then 6 decode steps fed the CPU's
-    greedy tokens.  In a MoE family every call's experts must be the
-    same on both sides before the logits are compared.  Returns the
-    largest logit error."""
-    from repro_torch.configs.base import _pattern_for
+    greedy tokens (argmax per codebook for the audio family).  A vlm
+    prompt has ``n_vis`` patch embeddings before its text tokens.  In a
+    MoE family every call's experts must be the same on both sides before
+    the logits are compared.  Returns the largest logit error."""
     from repro_torch.kernels import _build
     from repro_torch.models import ffn, lm
     from repro_torch.models.common import CPU_RC
+    tag = f"{cfg.name} prompt {prompt_len}" + (f" + {n_vis} patches"
+                                                if n_vis else "")
     log(f"phase 3: full-width {cfg.name} ({cfg.n_layers} layers) fp32, card "
-        f"(kernels) vs CPU (plain versions), {prompt_len}-token prompt, "
+        f"(kernels) vs CPU (plain versions), {prompt_len}-token prompt"
+        f"{f' after {n_vis} patch embeddings' if n_vis else ''}, "
         "teacher-forced")
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     p_dev = lm.init_params(cfg, gen, CPU_RC, device=dev)
     p_cpu = _tree_to(p_dev, "cpu")
-    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (1, prompt_len),
-                                               dtype=np.int32)
-    batch = {"tokens": torch.from_numpy(prompt)}
+    batch = model_batch(cfg, prompt_len, np.random.default_rng(1), n_vis)
     with ffn.record_routes() as r_cpu:
         lc, cc = lm.prefill(cfg, p_cpu, batch, CPU_RC, max_len=max_len)
     _build.reset_launches()
@@ -726,28 +823,27 @@ def phase_model(dev, cfg, prompt_len, max_len=None):
         ld, cd = lm.prefill(cfg, p_dev, batch, CPU_RC, max_len=max_len)
     torch.cuda.synchronize()
     margins = [_same_experts("prefill", r_cpu, r_dev)]
-    pattern = _pattern_for(cfg)
-    assert _build.LAUNCHES["flash_attention"] == pattern.count("attn") and \
-        _build.LAUNCHES["rglru_scan"] == pattern.count("rglru"), \
-        _build.LAUNCHES
-    assert ld.shape == (1, cfg.vocab)
+    n_flash, _, n_scan = path_launches(cfg)
+    assert _build.LAUNCHES["flash_attention"] == n_flash and \
+        _build.LAUNCHES["rglru_scan"] == n_scan, _build.LAUNCHES
+    assert ld.shape == lc.shape == ((1, cfg.n_codebooks, cfg.vocab)
+                                    if cfg.family == "audio"
+                                    else (1, cfg.vocab)), ld.shape
     errs = [check_close("prefill logits", ld.cpu(), lc, LOGIT_TOL)]
     cpu_cache = dict(_leaves(cc))
     for name, t in _leaves(cd):
         check_close(f"prefill cache {name}", t.cpu(), cpu_cache[name],
                     LOGIT_TOL)
-    tok = int(torch.argmax(lc[0]))
+    tok = torch.argmax(lc, dim=-1)              # (1,) or (1, K)
     for step in range(6):
         with ffn.record_routes() as r_cpu:
-            lc, cc = lm.decode_step(cfg, p_cpu, torch.tensor([tok]), cc,
-                                    CPU_RC)
+            lc, cc = lm.decode_step(cfg, p_cpu, tok, cc, CPU_RC)
         with ffn.record_routes() as r_dev:
-            ld, cd = lm.decode_step(cfg, p_dev, torch.tensor([tok]), cd,
-                                    CPU_RC)
+            ld, cd = lm.decode_step(cfg, p_dev, tok, cd, CPU_RC)
         margins.append(_same_experts(f"decode step {step}", r_cpu, r_dev))
         errs.append(check_close(f"decode step {step} logits", ld.cpu(), lc,
                                 LOGIT_TOL))
-        tok = int(torch.argmax(lc[0]))
+        tok = torch.argmax(lc, dim=-1)
     if cfg.moe is not None:
         RECORD.setdefault("moe_min_router_margin", {})[cfg.name] = \
             min(margins)
@@ -755,10 +851,8 @@ def phase_model(dev, cfg, prompt_len, max_len=None):
             f"router margin {min(margins):.3e}")
     del p_dev, cd
     torch.cuda.empty_cache()
-    RECORD.setdefault("phase3_s", {})[cfg.name] = \
-        time.perf_counter() - t_phase
-    log(f"  {cfg.name} ({cfg.n_layers} layers): "
-        f"{RECORD['phase3_s'][cfg.name]:.1f} s")
+    RECORD.setdefault("phase3_s", {})[tag] = time.perf_counter() - t_phase
+    log(f"  {tag} ({cfg.n_layers} layers): {RECORD['phase3_s'][tag]:.1f} s")
     return max(errs)
 
 
@@ -787,11 +881,10 @@ def phase_serving(dev, arch, runs, n_layers=None):
     """Serve full-width ``arch`` in bf16 through the port's MESC server,
     one batch-drive run per (policy, lanes, prompt, max_len, slots) in
     ``runs``; check each against the CPU port's step order and the
-    kernel launches against the layer pattern (MLA's decode has no
-    kernel: no decode-attention launch).  ``n_layers`` cuts the depth.
-    Returns (results by run tag, cfg, params, rc)."""
+    kernel launches against the layer pattern (``path_launches``).
+    ``n_layers`` cuts the depth.  Returns (results by run tag, cfg,
+    params, rc)."""
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import _pattern_for
     from repro_torch.core.scheduler import Policy
     from repro_torch.core.task import Crit
     from repro_torch.kernels import _build
@@ -815,9 +908,7 @@ def phase_serving(dev, arch, runs, n_layers=None):
         f" s; peak card memory {load['max_memory_allocated'] / 2**30:.2f} "
         "GiB")
     scfg, sparams, src = serve.load_model(arch + "-smoke", "cpu")
-    pattern = _pattern_for(cfg)
-    n_attn, n_rec = pattern.count("attn"), pattern.count("rglru")
-    n_dec = 0 if cfg.family == "mla_moe" else n_attn
+    n_attn, n_dec, n_rec = path_launches(cfg)
     out = {}
     for name, lanes, plen, max_len, slots in runs:
         policy = Policy.mesc() if name == "mesc" else Policy.non_preemptive()
@@ -862,7 +953,9 @@ def phase_serving(dev, arch, runs, n_layers=None):
                     "saves": saves, "launches": launches,
                     "ttft_latency_s": summary,
                     "tokens": {r.rid: list(r.generated)
-                               for r in got.values()}}
+                               for r in got.values()},
+                    "saved": {r.rid: r.saves for r in got.values()
+                              if r.saves}}
     return out, cfg, params, rc
 
 
@@ -873,8 +966,8 @@ def context_move_ms(cfg, params, rc, prompt_len=512, reps=5):
     from repro_torch.core.serving import _move_cache
     from repro_torch.models import lm
     dev = params["embed"].device
-    _, cache = lm.prefill(cfg, params, {"tokens": torch.zeros(
-        (1, prompt_len), dtype=torch.long)}, rc, max_len=1024)
+    _, cache = lm.prefill(cfg, params, {"tokens": zero_tokens(
+        cfg, 1, prompt_len)}, rc, max_len=1024)
     nbytes = sum(t.numel() * t.element_size() for _, t in _leaves(cache))
     saves, restores = [], []
     for _ in range(reps):
@@ -968,6 +1061,142 @@ def phase_moe_serving(dev):
     return out
 
 
+def phase_xlstm_serving(dev):
+    """xlstm-125m at full width and depth (three groups of three mLSTM
+    blocks and one sLSTM; 0.129 B parameters) under MESC and
+    non-preemptive serving with one resident slot, so that a HI arrival
+    saves the running LO request's recurrent state (20.42 MiB whatever the
+    sequence's length) to the host; every saved request's tokens must
+    equal a solo replay of its prompt.  The cells are PyTorch operations:
+    no kernel launch."""
+    from repro_torch.launch import serve
+    runs = [("mesc", 1, 8, 64, 1), ("np", 1, 8, 64, 1)]
+    out, cfg, params, rc = phase_serving(dev, "xlstm-125m", runs)
+    mesc = out["mesc lanes=1 prompt=8 max_len=64 slots=1"]
+    assert mesc["saves"] >= 1, mesc
+    reqs = {r.rid: r for r in serve.make_requests(
+        cfg, np.random.default_rng(0), prompt_len=8)}
+    for rid in mesc["saved"]:
+        toks, _ = _solo(cfg, params, rc, reqs[rid].prompt,
+                        reqs[rid].max_new_tokens, 64)
+        assert toks == mesc["tokens"][rid], \
+            f"rid {rid}: tokens across a save differ from its solo replay"
+    log(f"  slots=1: {mesc['saves']} saves of requests "
+        f"{sorted(mesc['saved'])}; each equals its solo replay")
+    for tag, r in out.items():
+        log(f"  {tag}: TTFT / latency {r['ttft_latency_s']}")
+    RECORD["xlstm_serving"] = out
+    RECORD["xlstm_context_move"] = context_move_ms(cfg, params, rc)
+    RECORD["xlstm_decode_profile"] = profile_decode(cfg, params, rc)
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_vlm_serving(dev):
+    """llava-next-34b at full width and depth (60 layers, GQA 56/8,
+    34.39 B parameters, 64.05 GiB in bf16), loaded after the card's cache
+    is emptied, its peak memory recorded: MESC and non-preemptive serving
+    on 8-token text prompts; then one request of 576 patch embeddings and
+    448 text tokens (1024 positions, RoPE over all of them) through
+    ``lm.prefill`` and 8 greedy decode steps, 60 flash launches and 60
+    decode launches a step.  Returns the MESC run's launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+    torch.cuda.empty_cache()
+    runs = [("mesc", 1, 8, 64, 2), ("np", 1, 8, 64, 2)]
+    out, cfg, params, rc = phase_serving(dev, "llava-next-34b", runs)
+    for tag, r in out.items():
+        log(f"  {tag}: TTFT / latency {r['ttft_latency_s']}")
+    n_flash, n_dec, _ = path_launches(cfg)
+    n_vis = cfg.n_frontend_tokens
+    batch = model_batch(cfg, 1024 - n_vis, np.random.default_rng(2), n_vis)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(cfg, params, batch, rc, max_len=2048)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    toks = []
+    for _ in range(8):
+        tok = torch.argmax(logits.float(), dim=-1)
+        toks.append(int(tok[0]))
+        logits, cache = lm.decode_step(cfg, params, tok, cache, rc)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    assert launches["flash_attention"] == n_flash \
+        and launches["decode_attention"] == 8 * n_dec, launches
+    assert cache["pos"] == 1032 and logits.shape == (1, cfg.vocab)
+    assert bool(torch.isfinite(logits.float()).all())
+    prefixed = {"positions": 1024, "patches": n_vis,
+                "prefill_wall_s": prefill_s, "tokens": toks,
+                "launches": launches,
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"  {n_vis} patch embeddings + {1024 - n_vis} text tokens: prefill "
+        f"{prefill_s * 1e3:.1f} ms wall, 8 decode steps, launches "
+        f"{launches}, peak card memory "
+        f"{prefixed['max_memory_allocated'] / 2**30:.2f} GiB")
+    RECORD["vlm_serving"] = dict(out, prefixed=prefixed)
+    RECORD["vlm_context_move"] = context_move_ms(cfg, params, rc)
+    RECORD["vlm_decode_profile"] = profile_decode(cfg, params, rc)
+    del params, cache
+    torch.cuda.empty_cache()
+    return out["mesc lanes=1 prompt=8 max_len=64 slots=2"]["launches"]
+
+
+def phase_audio(dev):
+    """musicgen-large at full width and depth (48 layers, MHA 32/32 at dh
+    64, 3.26 B parameters) in bf16: a 512-token, 4-codebook prompt through
+    ``lm.prefill`` and 16 greedy decode steps (argmax per codebook), 48
+    flash launches and 48 decode launches a step.  Not served: its tokens
+    are (B, S, K) and the server feeds (1, S) prompts, as the reference's
+    does.  Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    log("phase 4: full-width musicgen-large, bf16, prefill and greedy "
+        "decode (no server: the audio family takes (B, S, K) tokens)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, rc = serve.init_model(get_config("musicgen-large"), dev)
+    torch.cuda.synchronize()
+    load = {"params": sum(t.numel() for _, t in _leaves(params)),
+            "load_s": time.perf_counter() - t0,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "card": torch.cuda.get_device_name(0)}
+    RECORD.setdefault("model_load", {})[cfg.name] = load
+    log(f"  {load['params'] / 1e9:.3f} B parameters loaded in "
+        f"{load['load_s']:.1f} s; peak card memory "
+        f"{load['max_memory_allocated'] / 2**30:.2f} GiB")
+    n_flash, n_dec, _ = path_launches(cfg)
+    batch = model_batch(cfg, 512, np.random.default_rng(3))
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(cfg, params, batch, rc, max_len=1024)
+    toks = []
+    for _ in range(16):
+        tok = torch.argmax(logits.float(), dim=-1)          # (1, K)
+        toks.append(tok[0].tolist())
+        logits, cache = lm.decode_step(cfg, params, tok, cache, rc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    assert launches["flash_attention"] == n_flash \
+        and launches["decode_attention"] == 16 * n_dec, launches
+    assert logits.shape == (1, cfg.n_codebooks, cfg.vocab)
+    assert bool(torch.isfinite(logits.float()).all())
+    assert all(0 <= t < cfg.vocab for step in toks for t in step)
+    log(f"  512 x {cfg.n_codebooks} prompt and 16 decode steps: {wall:.2f} s"
+        f" wall; launches {launches}; first steps' tokens {toks[:3]}")
+    RECORD["audio"] = {"wall_s": wall, "launches": launches, "tokens": toks}
+    RECORD["audio_context_move"] = context_move_ms(cfg, params, rc)
+    RECORD["audio_decode_profile"] = profile_decode(cfg, params, rc)
+    del params, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -983,12 +1212,12 @@ def profile_decode(cfg, params, rc, steps: int = 5) -> dict:
 
     from repro_torch.models import lm
     dev = params["embed"].device
-    prompt = torch.zeros((1, 512), dtype=torch.long)
+    prompt = zero_tokens(cfg, 1, 512)
     t0 = time.perf_counter()
     _, cache = lm.prefill(cfg, params, {"tokens": prompt}, rc, max_len=1024)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    tok = torch.tensor([1], dtype=torch.int32, device=dev)
+    tok = (zero_tokens(cfg, 1) + 1).to(dev)
     for _ in range(3):
         _, cache = lm.decode_step(cfg, params, tok, cache, rc)
     torch.cuda.synchronize()
@@ -1716,8 +1945,9 @@ def _bound(flops, nbytes, peak):
 
 def phase_timing(dev, launches, card, power):
     """``launches`` maps each row to the count of its path's run: the
-    tinyllama and recurrentgemma 512-token MESC runs, the preemptible
-    GEMM."""
+    tinyllama, recurrentgemma-2b and deepseek-v2-lite-16b 512-token MESC
+    runs, the llava-next-34b 8-token MESC run, the musicgen-large prefill
+    and decode, the preemptible GEMM."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_tpu
     from repro_torch.kernels.flash_attention import flash_attention_tpu
@@ -1777,7 +2007,7 @@ def phase_timing(dev, launches, card, power):
             f"q 1x{Hq}x{dh}, cache 1x{Hkv}x{S}x{dh} bf16, pos {pos}{note}")
 
     def flash_row(name, Hq, Hkv, dh, S, window, note):
-        """One layer of the 512-token prefill; the library call gets the
+        """One layer of an S-token prefill; the library call gets the
         KV heads repeated to Hq beforehand.  At S <= window the band is
         the causal triangle, so SDPA's causal call is the same function."""
         assert S <= window or window == 0
@@ -1835,6 +2065,13 @@ def phase_timing(dev, launches, card, power):
                ", window ring")
     flash_row("flash_attention@recurrentgemma-2b", 10, 1, 256, 512, 2048,
               ", window 2048")
+    # llava-next-34b: a layer of the 1024-position prefixed prefill (576
+    # patches + 448 text tokens) and of decode at cache position 535, GQA
+    # 56/8 (G 7: head groups of 4 + 3); musicgen-large: a layer of the
+    # 512-token prefill and of decode at 535, MHA 32/32 at dh 64
+    for name, Hq, Hkv, dh, S in FAMILY_SHAPES:
+        flash_row(f"flash_attention@{name}", Hq, Hkv, dh, S, 0, "")
+        decode_row(f"decode_attention@{name}", Hq, Hkv, dh, 1024, 535, "")
     # deepseek-v2-lite-16b: one MLA layer of the 512-token prefill, q/k
     # head dim 192 against v 128, 16 heads; SDPA takes Ev != E as it is
     H, S, dqk, dv = 16, 512, 192, 128
@@ -1995,12 +2232,32 @@ def main() -> int:
         mav.moe, d_expert=512))
     RECORD["moe_fp32_max_logit_err"] = phase_model(dev, mav, 64,
                                                    max_len=128)
+    # xlstm-125m whole through the chunkwise (512 = 2 chunks of 256) and
+    # the parallel (8) mLSTM prefill; llava-next-34b cut to 2 of 60 layers
+    # (2.03 B parameters, 8.1 GB in fp32 a side); musicgen-large cut to 4
+    # of 48 (0.30 B)
+    t0 = time.perf_counter()
+    xl = get_config("xlstm-125m")
+    RECORD["xlstm_fp32_max_logit_err"] = max(
+        phase_model(dev, xl, 512), phase_model(dev, xl, 8))
+    RECORD["vlm_fp32_max_logit_err"] = phase_model(
+        dev, dataclasses.replace(get_config("llava-next-34b"), n_layers=2),
+        64, max_len=192, n_vis=64)
+    RECORD["audio_fp32_max_logit_err"] = phase_model(
+        dev, dataclasses.replace(get_config("musicgen-large"), n_layers=4),
+        64, max_len=128)
+    RECORD["last_families_fp32_s"] = time.perf_counter() - t0
     dense_launches = phase_dense_serving(dev)
     hybrid_launches = phase_hybrid_serving(dev)
     t0 = time.perf_counter()
     mla_launches = phase_mla_serving(dev)
     phase_moe_serving(dev)
     RECORD["moe_serving_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_xlstm_serving(dev)
+    vlm_launches = phase_vlm_serving(dev)
+    audio_launches = phase_audio(dev)
+    RECORD["last_families_serving_s"] = time.perf_counter() - t0
     gemm_launches = phase_gemm(dev)
     RECORD["open_loop"] = phase_open_loop(dev)
     RECORD["lockstep"] = phase_sim(dev)
@@ -2014,6 +2271,11 @@ def main() -> int:
             hybrid_launches["flash_attention"],
         "flash_attention@deepseek-v2-lite-16b":
             mla_launches["flash_attention"],
+        "flash_attention@llava-next-34b": vlm_launches["flash_attention"],
+        "decode_attention@llava-next-34b": vlm_launches["decode_attention"],
+        "flash_attention@musicgen-large": audio_launches["flash_attention"],
+        "decode_attention@musicgen-large":
+            audio_launches["decode_attention"],
         "rglru_scan": hybrid_launches["rglru_scan"],
         "gemm_partial": gemm_launches["gemm_partial"],
         "systolic_gemm": gemm_launches["systolic_gemm"]}

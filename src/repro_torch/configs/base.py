@@ -2,8 +2,8 @@
 
 Every field of the reference's ``ArchConfig`` and its sub-configs is
 here, because ``core/program.py::workload_library`` builds an ``arch:``
-program from every entry of ``ARCHS``.  The port's models serve the
-dense and hybrid families only (``models/lm.py::_check_family``).
+program from every entry of ``ARCHS``.  The port's models cover all
+seven families (``models/lm.py::FAMILIES``).
 ``reduced()`` derives the smoke config exactly as the reference does,
 so every ``-smoke`` config has the same shape on both sides.
 """

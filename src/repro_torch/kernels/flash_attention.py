@@ -25,7 +25,7 @@ from repro_torch.kernels import _build, ref
 
 NEG_INF = -1e30
 # (dqk, dv) pairs instantiated by both kernels (their dispatch macros):
-# square dims for the dense and hybrid families, DeepSeek-V2's MLA prefill
+# square dims for the attention families, DeepSeek-V2's MLA prefill
 # (192 = 128 nope + 64 rope, 128) and its smoke config's (24, 16); the
 # tensor-core kernel pads a dqk of 24 with zero columns to 32
 HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (256, 256),

@@ -18,6 +18,8 @@ model serves the arrivals in wall-clock time on ``--device``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-34b
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch llama4-maverick-400b-a17b-smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --lanes 2 --device cpu \
@@ -26,11 +28,16 @@ model serves the arrivals in wall-clock time on ``--device``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arrivals poisson
 
 ``--arch`` takes a config of the dense (tinyllama-1.1b, olmo-1b,
-phi4-mini-3.8b, qwen1.5-110b), hybrid (recurrentgemma-2b), ``moe``
+phi4-mini-3.8b, qwen1.5-110b), ``vlm`` (llava-next-34b, served on text
+prompts), hybrid (recurrentgemma-2b), ``xlstm`` (xlstm-125m), ``moe``
 (llama4-maverick-400b-a17b) or ``mla_moe`` (deepseek-v2-lite-16b) family,
 or its ``-smoke`` cut.  One 80 GB card holds DeepSeek-V2-Lite whole (16.2 B
-parameters, 32.4 GB in bf16); full Maverick (397.7 B) fits no card, its
-smoke config runs anywhere.
+parameters, 32.4 GB in bf16) and LLaVA-NeXT-34B whole (34.4 B, 64.05 GiB
+in bf16); full Maverick (397.7 B) fits no card, its smoke config runs
+anywhere.  The ``audio`` family (musicgen-large) cannot be served: its
+tokens are (B, S, K) codebook ids and the server feeds (1, S) prompts,
+as the reference's does, so its first prefill raises a ``ValueError``;
+drive it through ``lm.prefill`` / ``lm.decode_step``.
 
 Parameters are random, from ``lm.init_params`` on a seeded generator; on
 the card the model computes in bf16 (``DEFAULT_RC``), on the CPU in fp32

@@ -1,6 +1,14 @@
-"""Decoder LM: the dense GQA, hybrid (RG-LRU + local attention), ``moe``
-(groups of attn+dense, attn+MoE) and ``mla_moe`` (MLA attention + MoE)
-families (twin of those branches of the reference's ``models/lm.py``).
+"""Decoder LM: the reference's seven families (twin of the serving side
+of its ``models/lm.py``):
+
+  dense / vlm / audio : uniform (attn + SwiGLU) blocks; ``vlm`` prepends
+                        precomputed patch embeddings (``vis_embeds``),
+                        ``audio`` sums ``n_codebooks`` token embeddings and
+                        predicts each codebook's logits
+  moe (moe_every=2)   : groups of (attn+dense, attn+MoE)
+  mla_moe             : layers of (MLA attn + MoE)
+  hybrid              : groups of (rglru, rglru, local-attn) + a tail
+  xlstm               : groups of (slstm_every - 1) mLSTM blocks + 1 sLSTM
 
 Entry points are plain functions of (cfg, params, ...): ``init_params``,
 ``params_from_jax``, ``embed_inputs``, ``lm_logits``, ``init_cache``,
@@ -12,7 +20,7 @@ Caches keep the reference's layout, with ``pos`` a host int so that
 neither the kernels (which take it by value) nor the serving loop's
 termination test need a device sync:
 
-- dense: ``{"ck", "cv": (L,B,S,Hkv,dh), "pos"}``;
+- dense, vlm, audio: ``{"ck", "cv": (L,B,S,Hkv,dh), "pos"}``;
 - hybrid: per group of (rglru, rglru, attn) the RG-LRU states
   ``rh0``/``rh1`` (G,B,d_rnn) fp32 and conv states ``rconv0``/``rconv1``
   (G,B,conv_width-1,d_rnn), the window ring ``wk``/``wv``
@@ -21,14 +29,20 @@ termination test need a device sync:
 - moe: per group of ``moe_every`` (2) layers the two attention layers'
   ``cka``/``cva`` and ``ckb``/``cvb`` (G,B,S,Hkv,dh);
 - mla_moe: MLA's compressed cache, ``cc`` (L,B,S,kv_lora) and the shared
-  rope key ``ckr`` (L,B,S,qk_rope).
+  rope key ``ckr`` (L,B,S,qk_rope);
+- xlstm: per group the mLSTM layers' matrix memory ``mC``
+  (G,n_m,B,H,dh,dh), normaliser ``mn`` (G,n_m,B,H,dh) and stabiliser
+  ``mm`` (G,n_m,B,H), all fp32, and conv state ``mconv`` (G,n_m,B,3,inner);
+  the sLSTM layer's ``sc``, ``sn``, ``sh``, ``sm`` (G,B,D) fp32.  Its size
+  does not grow with the sequence.
 
 ``decode_step`` updates the cache tensors in place and returns a dict
 holding them with ``pos + 1``.
 
-Other families raise ``NotImplementedError`` until they are ported.
-The training side (``forward``, ``chunked_xent``, ``loss_fn``, the MoE
-metrics summed over layers) is not ported yet.
+Tokens are (B, S) ids, (B, S, K) codebook ids for ``audio`` (decode:
+(B,) and (B, K)); ``audio`` logits are (..., K, V).  The training side
+(``forward``, ``chunked_xent``, ``loss_fn``, the MoE metrics summed over
+layers) is not ported yet.
 """
 from __future__ import annotations
 
@@ -36,6 +50,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
@@ -50,11 +65,13 @@ Params = Dict[str, Any]
 # parameter subtrees kept in the parameter dtype: the norms read their
 # scale as fp32 (``scale.astype(float32)``), so casting it to a bf16
 # compute dtype would change the result
-_NORM_KEYS = ("ln", "out_norm", "c_norm")
-# leaves the reference creates and reads in fp32 whatever the dtypes
-# (the RG-LRU decay ``lam``, ``recurrent.py:36``)
-_FP32_KEYS = ("lam",)
-FAMILIES = ("dense", "hybrid", "moe", "mla_moe")
+_NORM_KEYS = ("ln", "ln_mlp", "out_norm", "c_norm", "gn")
+# leaves read in fp32 whatever the dtypes: the RG-LRU decay ``lam``
+# (created fp32, ``recurrent.py:36``) and the sLSTM's input weights,
+# recurrent weights and bias (``slstm_seq`` reads them ``astype(float32)``)
+_FP32_KEYS = ("lam", "w_in", "r", "b")
+FAMILIES = ("dense", "vlm", "audio", "moe", "mla_moe", "hybrid", "xlstm")
+_DENSE = ("dense", "vlm", "audio")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -99,12 +116,27 @@ def _hybrid_group_counts(cfg: ArchConfig) -> Tuple[int, int]:
     return cfg.n_layers // pat, cfg.n_layers % pat
 
 
+def _xlstm_groups(cfg: ArchConfig) -> Tuple[int, int]:
+    """(n_groups, mLSTM layers a group): each group is ``slstm_every``
+    layers, the last of them sLSTM."""
+    every = cfg.xlstm.slstm_every
+    assert cfg.n_layers % every == 0, (cfg.n_layers, every)
+    return cfg.n_layers // every, every - 1
+
+
+def _mlstm_inner(cfg: ArchConfig) -> int:
+    return int(cfg.xlstm.mlstm_proj_factor * cfg.d_model)
+
+
 # ===========================================================================
 # Parameters
 # ===========================================================================
 
 def _stacked_norm(cfg, L, dtype, device):
-    return {k: v.expand(L, cfg.d_model).clone()
+    """Norm parameters stacked on ``L`` (an int, or a tuple of leading
+    dims)."""
+    lead = L if isinstance(L, tuple) else (L,)
+    return {k: v.expand(*lead, cfg.d_model).clone()
             for k, v in norm_params(cfg.norm, cfg.d_model, dtype,
                                     device).items()}
 
@@ -204,6 +236,51 @@ def _rglru_block_params(cfg, g, L, dtype, device):
     }
 
 
+def _mlstm_params(cfg, g, lead, dtype, device):
+    """mLSTM block parameters stacked on the leading dims ``lead``."""
+    d, H, inner = cfg.d_model, cfg.n_heads, _mlstm_inner(cfg)
+    z = dict(dtype=dtype, device=device)
+    b_if = torch.cat([torch.zeros((H,), **z),
+                      torch.full((H,), 3.0, **z)])       # forget bias
+    return {
+        "ln": _stacked_norm(cfg, lead, dtype, device),
+        "w_up": dense_init(g, lead + (d, 2 * inner), dtype, device),  # u, z
+        "conv_w": dense_init(g, lead + (4, inner), dtype, device,
+                             scale=0.1),
+        "conv_b": torch.zeros(lead + (inner,), **z),
+        "w_q": dense_init(g, lead + (inner, inner), dtype, device),
+        "w_k": dense_init(g, lead + (inner, inner), dtype, device),
+        "w_if": dense_init(g, lead + (inner, 2 * H), dtype, device,
+                           scale=0.01),
+        "b_if": b_if.expand(lead + (2 * H,)).clone(),
+        "gn": torch.ones(lead + (inner,), **z),
+        "w_down": dense_init(g, lead + (inner, d), dtype, device,
+                             scale=_out_scale(cfg)),
+    }
+
+
+def _slstm_params(cfg, g, G, dtype, device):
+    """sLSTM block parameters stacked on G; ``w_in``, ``r`` and ``b`` in
+    fp32, as ``slstm_seq`` reads them."""
+    d, H = cfg.d_model, cfg.n_heads
+    dh, f = d // H, int(cfg.xlstm.slstm_proj_factor * d)
+    f32 = dict(dtype=torch.float32, device=device)
+    b = torch.cat([torch.zeros((2 * d,), **f32), torch.full((d,), 2.0, **f32),
+                   torch.zeros((d,), **f32)])            # z, i, f(+bias), o
+    return {
+        "ln": _stacked_norm(cfg, G, dtype, device),
+        "ln_mlp": _stacked_norm(cfg, G, dtype, device),
+        "w_in": dense_init(g, (G, d, 4 * d), torch.float32, device),
+        "r": dense_init(g, (G, H, dh, 4 * dh), torch.float32, device,
+                        scale=0.01),
+        "b": b.expand(G, 4 * d).clone(),
+        "gn": torch.ones((G, d), dtype=dtype, device=device),
+        "mlp": {"w1": dense_init(g, (G, d, f), dtype, device),
+                "w3": dense_init(g, (G, d, f), dtype, device),
+                "w2": dense_init(g, (G, f, d), dtype, device)},
+    }
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 rc: RuntimeConfig = DEFAULT_RC, device=None) -> Params:
     """Random parameters with the reference's shapes and init scales.
@@ -222,14 +299,16 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     _check_family(cfg)
     device = resolve_device(device)
     g, wd = generator, rc.compute_dtype
-    d, V, L = cfg.d_model, cfg.vocab, cfg.n_layers
+    d, L = cfg.d_model, cfg.n_layers
+    # audio: one table of K codebooks x V ids, logits for every codebook
+    V = cfg.n_codebooks * cfg.vocab if cfg.family == "audio" else cfg.vocab
     params: Params = {
         "embed": dense_init(g, (V, d), wd, device),
         "out_norm": norm_params(cfg.norm, d, wd, device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(g, (d, V), wd, device)
-    if cfg.family == "dense":
+    if cfg.family in _DENSE:
         params["blocks"] = {"attn": _attn_params(cfg, g, L, wd, device),
                             "mlp": _mlp_params(cfg, g, L, wd, device)}
     elif cfg.family == "moe":
@@ -241,6 +320,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     elif cfg.family == "mla_moe":
         params["blocks"] = {"attn": _mla_params(cfg, g, L, wd, device),
                             "moe": _moe_params(cfg, g, L, wd, device)}
+    elif cfg.family == "xlstm":
+        G, n_m = _xlstm_groups(cfg)
+        params["blocks"] = {"m": _mlstm_params(cfg, g, (G, n_m), wd, device),
+                            "s": _slstm_params(cfg, g, G, wd, device)}
     else:
         G, tail = _hybrid_group_counts(cfg)
         params["blocks"] = {
@@ -282,11 +365,28 @@ def params_from_jax(cfg: ArchConfig, tree, rc: RuntimeConfig = DEFAULT_RC,
 
 def embed_inputs(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
                  rc: RuntimeConfig):
-    """Returns h (B, S, D)."""
+    """Returns h (B, S, D): ``vlm`` with ``batch["vis_embeds"]`` (B, P, D)
+    prepended, S = P + the text tokens; ``audio`` from (B, S, K) codebook
+    ids, their K embeddings summed."""
     _check_family(cfg)
-    tokens = torch.as_tensor(batch["tokens"],
-                             device=params["embed"].device).long()
-    h = params["embed"][tokens].to(rc.compute_dtype)
+    emb = params["embed"]
+    tokens = torch.as_tensor(batch["tokens"], device=emb.device).long()
+    if cfg.family == "audio":
+        K = cfg.n_codebooks
+        if tokens.dim() != 3 or tokens.shape[-1] != K:
+            raise ValueError(f"{cfg.name} takes (B, S, K={K}) codebook "
+                             f"tokens, got shape {tuple(tokens.shape)}")
+        offs = torch.arange(K, device=emb.device) * cfg.vocab
+        # summed in fp32 before the cast, as the reference sums its fp32
+        # table's rows
+        h = emb[tokens + offs].float().sum(dim=2)
+    elif cfg.family == "vlm" and "vis_embeds" in batch:
+        te = emb[tokens]
+        vis = torch.as_tensor(batch["vis_embeds"], device=emb.device)
+        h = torch.cat([vis.to(te.dtype), te], dim=1)
+    else:
+        h = emb[tokens]
+    h = h.to(rc.compute_dtype)
     if cfg.family == "hybrid":            # gemma-style scaling
         # the scale is rounded to h's dtype first, as the reference's
         # jnp.asarray(d_model ** 0.5, h.dtype) is (50.5 in bf16)
@@ -298,7 +398,11 @@ def embed_inputs(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
 def lm_logits(cfg: ArchConfig, params: Params, h, rc: RuntimeConfig):
     h = apply_norm(cfg.norm, h, params["out_norm"])
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(h, w.to(h.dtype))
+    logits = torch.matmul(h, w.to(h.dtype))
+    if cfg.family == "audio":
+        logits = logits.reshape(logits.shape[:-1]
+                                + (cfg.n_codebooks, cfg.vocab))
+    return logits
 
 
 # ===========================================================================
@@ -361,6 +465,77 @@ def _rglru_full(cfg, rc, h, p):
     return h + out, (h_last, conv_state)
 
 
+def _mlstm_qkv(cfg, p, x, conv=None):
+    """x (B,S,D) -> q, k, v (B,S,H,dh), log_i / log_f (B,S,H) fp32, the
+    output gate z (B,S,inner) and the conv state (B,3,inner); ``conv`` is
+    the decode step's state.  v is the up-projection before the conv."""
+    u, z = torch.chunk(torch.matmul(x, p["w_up"].to(x.dtype)), 2, dim=-1)
+    uc, conv_state = rec_lib.causal_conv1d(u, p["conv_w"], p["conv_b"],
+                                           state=conv)
+    uc = F.silu(uc)
+    q = torch.matmul(uc, p["w_q"].to(x.dtype))
+    k = torch.matmul(uc, p["w_k"].to(x.dtype))
+    gates = torch.matmul(uc, p["w_if"].to(x.dtype)) + p["b_if"].to(x.dtype)
+    log_i, f_pre = torch.chunk(gates.float(), 2, dim=-1)
+
+    def heads(t):
+        return t.reshape(t.shape[0], t.shape[1], cfg.n_heads, -1)
+    return heads(q), heads(k), heads(u), log_i, F.logsigmoid(f_pre), z, \
+        conv_state
+
+
+def _mlstm_out(cfg, h, p, hh, z):
+    """h + the down-projection of the heads' outputs hh (..., H, dh),
+    group-normed per head and gated by silu(z)."""
+    hh = rec_lib.groupnorm_heads(hh.reshape(z.shape), p["gn"], cfg.n_heads)
+    return h + torch.matmul(hh * F.silu(z), p["w_down"].to(h.dtype))
+
+
+def _mlstm_full(cfg, rc, h, p):
+    """mLSTM prefill: the chunkwise form when S is a multiple (> 1) of
+    the chunk, else the parallel form and the final state.  Returns
+    (h, ((C, n, m), conv_state))."""
+    x = apply_norm(cfg.norm, h, p["ln"])
+    q, k, v, log_i, log_f, z, conv_state = _mlstm_qkv(cfg, p, x)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))       # (B,H,S,dh)
+    log_i, log_f = log_i.transpose(1, 2), log_f.transpose(1, 2)
+    S, chunk = q.shape[2], cfg.xlstm.chunk
+    if S > chunk and S % chunk == 0:
+        hh, state = rec_lib.mlstm_chunkwise(q, k, v, log_i, log_f,
+                                            chunk=chunk)
+    else:
+        hh = rec_lib.mlstm_parallel(q, k, v, log_i, log_f)
+        state = rec_lib.mlstm_final_state(q, k, v, log_i, log_f)
+    return _mlstm_out(cfg, h, p, hh.transpose(1, 2), z), (state, conv_state)
+
+
+def _mlstm_decode(cfg, rc, h, p, C, n, m, conv):
+    """One mLSTM step; ``C``, ``n``, ``m`` (one layer's fp32 state) and
+    ``conv`` (B,3,inner) are written in place."""
+    x = apply_norm(cfg.norm, h, p["ln"])
+    q, k, v, log_i, log_f, z, conv_state = _mlstm_qkv(cfg, p, x, conv)
+    hh, new = rec_lib.mlstm_step(q[:, 0], k[:, 0], v[:, 0], log_i[:, 0],
+                                 log_f[:, 0], (C, n, m))
+    for t, t_new in zip((C, n, m, conv), new + (conv_state,)):
+        t.copy_(t_new)
+    return _mlstm_out(cfg, h, p, hh[:, None], z)
+
+
+def _slstm_full(cfg, rc, h, p, state=None):
+    """sLSTM block over h (B,S,D) from ``state`` (c, n, h, m); returns
+    (h, new_state)."""
+    x = apply_norm(cfg.norm, h, p["ln"])
+    y, new_state = rec_lib.slstm_seq(x, p, cfg.n_heads, state=state)
+    h = h + rec_lib.groupnorm_heads(y, p["gn"], cfg.n_heads)
+    h = h + ffn_lib.geglu(apply_norm(cfg.norm, h, p["ln_mlp"]), p["mlp"])
+    return h, new_state
+
+
+# the xlstm cache's mLSTM state (C, n, m) and conv state, and sLSTM state
+_MLSTM_KEYS = ("mC", "mn", "mm", "mconv")
+_SLSTM_KEYS = ("sc", "sn", "sh", "sm")
+
+
 def _window_cache(x, W: int):
     """The prefill's (B,S,...) keys or values as a W-slot ring: position
     t in slot t % W; padded with zeros when S < W."""
@@ -420,7 +595,7 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
         return torch.zeros(shape, dtype=dtype, device=device)
 
     kv = (cfg.n_kv_heads, cfg.dh)
-    if cfg.family == "dense":
+    if cfg.family in _DENSE:
         cache = {"ck": z(cfg.n_layers, B, max_len, *kv),
                  "cv": z(cfg.n_layers, B, max_len, *kv)}
     elif cfg.family == "moe":
@@ -431,6 +606,17 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
         m = cfg.mla
         cache = {"cc": z(cfg.n_layers, B, max_len, m.kv_lora_rank),
                  "ckr": z(cfg.n_layers, B, max_len, m.qk_rope_dim)}
+    elif cfg.family == "xlstm":
+        G, n_m = _xlstm_groups(cfg)
+        H, D, inner = cfg.n_heads, cfg.d_model, _mlstm_inner(cfg)
+        dh, f32 = inner // H, torch.float32
+        cache = {"mC": z(G, n_m, B, H, dh, dh, dtype=f32),
+                 "mn": z(G, n_m, B, H, dh, dtype=f32),
+                 "mm": z(G, n_m, B, H, dtype=f32).fill_(-1e30),
+                 "mconv": z(G, n_m, B, 3, inner),
+                 "sc": z(G, B, D, dtype=f32), "sn": z(G, B, D, dtype=f32),
+                 "sh": z(G, B, D, dtype=f32),
+                 "sm": z(G, B, D, dtype=f32).fill_(-10.0)}
     else:
         G, tail = _hybrid_group_counts(cfg)
         r = cfg.rglru
@@ -457,17 +643,19 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
             rc: RuntimeConfig = DEFAULT_RC, max_len: Optional[int] = None):
     """Full-sequence pass that also builds the decode cache.
 
-    Returns (last_logits, cache).  Dense, moe and mla_moe caches are
-    padded to ``max_len`` if given and longer than the prompt.  The
-    hybrid cache is not: its window ring has ``window`` slots whatever
-    the prompt, as in the reference (``lm.py:329-339,714-719``).
+    Returns (last_logits, cache).  Dense, vlm, audio, moe and mla_moe
+    caches are padded to ``max_len`` if given and longer than the prompt
+    (a vlm prompt's length counts its patch embeddings).  The hybrid
+    cache is not: its window ring has ``window`` slots whatever the
+    prompt, as in the reference (``lm.py:329-339,714-719``); nor is the
+    xlstm state, whose size is fixed.
     """
     h = embed_inputs(cfg, params, batch, rc)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
     blocks = params["blocks"]
     T = max_len if (max_len is not None and max_len > S) else S
-    if cfg.family == "dense":
+    if cfg.family in _DENSE:
         cache = init_cache(cfg, B, T, rc, h.device)
         for i in range(cfg.n_layers):
             p = _layer(blocks, i)
@@ -495,6 +683,19 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
             cache["cc"][i, :, :S] = c
             cache["ckr"][i, :, :S] = kr
             h = _moe_nometrics(cfg, h, p["moe"])
+    elif cfg.family == "xlstm":
+        G, n_m = _xlstm_groups(cfg)
+        cache = init_cache(cfg, B, S, rc, h.device)
+        for i in range(G):
+            p = _layer(blocks, i)
+            for j in range(n_m):
+                h, ((C, n, m), conv) = _mlstm_full(cfg, rc, h,
+                                                   _layer(p["m"], j))
+                for key, t in zip(_MLSTM_KEYS, (C, n, m, conv)):
+                    cache[key][i, j] = t
+            h, state = _slstm_full(cfg, rc, h, p["s"])
+            for key, t in zip(_SLSTM_KEYS, state):
+                cache[key][i] = t
     else:
         G, n_tail = _hybrid_group_counts(cfg)
         W = cfg.rglru.window
@@ -527,10 +728,11 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: Params, tokens, cache,
                 rc: RuntimeConfig = DEFAULT_RC):
-    """One decode step.  tokens (B,) int.
+    """One decode step.  tokens (B,) int (audio: (B, K)).
 
-    Returns (logits (B, V), cache).  The cache tensors are updated in
-    place; the returned dict holds them with ``pos`` advanced by one.
+    Returns (logits (B, V), audio (B, K, V); cache).  The cache tensors
+    are updated in place; the returned dict holds them with ``pos``
+    advanced by one.
     """
     pos = int(cache["pos"])
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
@@ -539,7 +741,7 @@ def decode_step(cfg: ArchConfig, params: Params, tokens, cache,
     positions = torch.full((B, 1), pos, device=h.device)
     blocks = params["blocks"]
     c = cache
-    if cfg.family == "dense":
+    if cfg.family in _DENSE:
         for i in range(cfg.n_layers):
             p = _layer(blocks, i)
             h = _attn_decode(cfg, rc, h, p["attn"], c["ck"][i], c["cv"][i],
@@ -561,6 +763,17 @@ def decode_step(cfg: ArchConfig, params: Params, tokens, cache,
             h = h + attn_lib.mla_decode(x[:, 0], p["attn"], cfg, c["cc"][i],
                                         c["ckr"][i], pos)[:, None]
             h = _moe_decode(cfg, h, p["moe"])
+    elif cfg.family == "xlstm":
+        G, n_m = _xlstm_groups(cfg)
+        for i in range(G):
+            p = _layer(blocks, i)
+            for j in range(n_m):
+                h = _mlstm_decode(cfg, rc, h, _layer(p["m"], j),
+                                  *(c[k][i, j] for k in _MLSTM_KEYS))
+            h, state = _slstm_full(cfg, rc, h, p["s"],
+                                   tuple(c[k][i] for k in _SLSTM_KEYS))
+            for key, t in zip(_SLSTM_KEYS, state):
+                c[key][i].copy_(t)
     else:
         G, n_tail = _hybrid_group_counts(cfg)
         geglu = ffn_lib.geglu

@@ -342,6 +342,97 @@ def test_decode_at_chunk_edges_repeats_bit_for_bit(gen, B, Hkv, G, dh, S,
             pos
 
 
+# the vlm and audio families' head layouts: LLaVA-NeXT-34B's GQA 56/8 at
+# dh 128 (G 7, decode head groups of 4 + 3), MusicGen-large's MHA 32/32
+# at dh 64 (G 1)
+FAMILY_HEADS = [pytest.param(56, 8, 128, id="llava-G7"),
+                pytest.param(32, 32, 64, id="musicgen-G1")]
+PREFILL_LEN = {128: 1024, 64: 512}    # the chip_smoke prefills, by dh
+
+
+@pytest.mark.parametrize("Hq,Hkv,dh", FAMILY_HEADS)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_flash_at_the_vlm_and_audio_head_layouts(gen, Hq, Hkv, dh, dtype,
+                                                 tol):
+    """Causal flash at each family's prefill length, inside NaN frames."""
+    S = PREFILL_LEN[dh]
+    q = _nan_framed(gen, 1, S, Hq, dh, dtype)
+    k = _nan_framed(gen, 1, S, Hkv, dh, dtype)
+    v = _nan_framed(gen, 1, S, Hkv, dh, dtype)
+    out = flash_attention_tpu(q, k, v)
+    assert out.dtype == dtype and out.shape == (1, Hq, S, dh)
+    assert bool(torch.isfinite(out).all())
+    assert _err(out, ref.flash_attention_ref(q, k, v)) <= tol
+
+
+@pytest.mark.parametrize("Hq,Hkv,dh", FAMILY_HEADS)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_decode_at_the_vlm_and_audio_head_layouts(gen, Hq, Hkv, dh, dtype,
+                                                  tol):
+    """Decode on a 1024-slot cache at the split plan's chunk edges, q and
+    the cache inside NaN frames, each call twice and bit-identical."""
+    q = _nan_framed(gen, 1, 1, Hq, dh, dtype)[:, :, 0]
+    kc = _nan_framed(gen, 1, 1024, Hkv, dh, dtype)
+    vc = _nan_framed(gen, 1, 1024, Hkv, dh, dtype)
+    for pos in _edge_positions(1, Hkv, Hq // Hkv, dh, 1024,
+                               q.element_size()):
+        out = decode_attention_tpu(q, kc, vc, pos)
+        assert torch.equal(out, decode_attention_tpu(q, kc, vc, pos)), pos
+        assert bool(torch.isfinite(out).all()), pos
+        assert _err(out, ref.decode_attention_ref(q, kc, vc, pos)) <= tol, \
+            pos
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m-smoke", "llava-next-34b-smoke",
+                                  "musicgen-large-smoke"])
+def test_last_families_on_the_card_equal_the_cpu(gen, arch):
+    """One prefill (xLSTM: the chunkwise form, 32 tokens in chunks of 16;
+    the vlm: 8 patch embeddings + 8 tokens; audio: (1, 16, 4) codebook
+    ids) and four teacher-forced decode steps of the smoke config in fp32,
+    the card (kernels) against the CPU (plain versions); one flash launch
+    a prefill and one decode launch a step per attention layer, none for
+    xLSTM."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.common import CPU_RC
+    cfg = get_config(arch)
+    p_dev = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           CPU_RC, device="cuda")
+    p_cpu = _to_cpu(p_dev)
+    rng = np.random.default_rng(4)
+    S = 32 if cfg.family == "xlstm" else 16 if cfg.family == "audio" else 8
+    shape = (1, S, cfg.n_codebooks) if cfg.family == "audio" else (1, S)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, shape))}
+    if cfg.family == "vlm":
+        batch["vis_embeds"] = torch.from_numpy(rng.standard_normal(
+            (1, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
+    n_attn = 0 if cfg.family == "xlstm" else cfg.n_layers
+    lc, cc = lm.prefill(cfg, p_cpu, batch, CPU_RC, max_len=64)
+    _build.reset_launches()
+    ld, cd = lm.prefill(cfg, p_dev, batch, CPU_RC, max_len=64)
+    assert _build.LAUNCHES["flash_attention"] == n_attn, _build.LAUNCHES
+    assert _err(ld.cpu(), lc) <= 1e-4
+    for _ in range(4):
+        tok = torch.argmax(lc, dim=-1)
+        lc, cc = lm.decode_step(cfg, p_cpu, tok, cc, CPU_RC)
+        ld, cd = lm.decode_step(cfg, p_dev, tok, cd, CPU_RC)
+        assert ld.shape == lc.shape and _err(ld.cpu(), lc) <= 1e-4
+    assert _build.LAUNCHES["decode_attention"] == 4 * n_attn
+    for k, t in cc.items():
+        if k != "pos":
+            assert _err(cd[k].cpu(), t) <= 1e-4, k
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
 def test_decode_in_a_cuda_graph_equals_the_eager_call(gen):
     """The counters reset themselves, so a captured decode call replays."""
     bf = torch.bfloat16

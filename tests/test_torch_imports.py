@@ -127,6 +127,23 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lm.init_cache(cfg, 1, 8)
 
 
+@pytest.mark.parametrize("arch", ["xlstm-125m-smoke", "llava-next-34b-smoke",
+                                  "musicgen-large-smoke"])
+def test_the_last_families_default_to_the_card(monkeypatch, arch):
+    """The xlstm, vlm and audio entry points, like the others, raise
+    without CUDA unless the CPU is named."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(arch)
+    assert cfg.family in lm.FAMILIES
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm.init_cache(cfg, 1, 8)
+    assert lm.init_cache(cfg, 1, 8, device="cpu")["pos"] == 0
+
+
 def test_kernel_build_key_covers_every_source():
     from repro_torch.kernels import _build
     srcs = {p.name for p in _build._sources()}

@@ -1,11 +1,15 @@
 """The port's MESC serving lane against the reference's, on the five
 model-backed scenarios of tests/test_serving.py (TestMESCServing x3,
-TestMultiLaneServing x2): same step order, same generated tokens, same
-saves and preemptions, and an empty arena at the end.  Both servers run
-tinyllama-1.1b-smoke, recurrentgemma-2b-smoke, deepseek-v2-lite-16b-smoke
-(MLA + MoE) and llama4-maverick-400b-a17b-smoke (MoE) in fp32 on the CPU
-with the same parameters (the reference's, converted by
-``params_from_jax``)."""
+TestMultiLaneServing x2) and a HI arrival that saves a running LO
+request's context to the host (one resident slot): same step order, same
+generated tokens, same saves and preemptions, and an empty arena at the
+end.  Both servers run tinyllama-1.1b-smoke, recurrentgemma-2b-smoke,
+deepseek-v2-lite-16b-smoke (MLA + MoE), llama4-maverick-400b-a17b-smoke
+(MoE), xlstm-125m-smoke (mLSTM + sLSTM: a fixed-size recurrent state) and
+llava-next-34b-smoke (vlm, text prompts) in fp32 on the CPU with the same
+parameters (the reference's, converted by ``params_from_jax``).  The
+audio family takes (B, S, K) prompts, which neither server feeds
+(tests/test_torch_vlm_audio.py)."""
 import dataclasses
 from typing import Any
 
@@ -29,6 +33,8 @@ ARCH = "tinyllama-1.1b-smoke"
 HYBRID = "recurrentgemma-2b-smoke"
 MLA_MOE = "deepseek-v2-lite-16b-smoke"
 MOE = "llama4-maverick-400b-a17b-smoke"
+XLSTM = "xlstm-125m-smoke"
+VLM = "llava-next-34b-smoke"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +138,25 @@ def bank_pool_eviction_and_restore(s: Side):
     return rec
 
 
+def hi_saves_lo_with_one_resident_slot(s: Side):
+    """A HI arrival after a LO start on a one-slot pool: the running LO
+    request's context is saved to the host, the HI request runs at the
+    next step, and the LO request resumes from its restored context."""
+    srv = s.serving.MESCServer(s.cfg, s.params, policy=s.Policy.mesc(),
+                               max_len=32, resident_slots=1)
+    order = []
+    srv.submit(_req(s, 0, "LO", 10, n=10))
+    order += [srv.step() for _ in range(3)]
+    srv.submit(_req(s, 1, "HI", 0, n=3))
+    order.append("hi")
+    order.append(srv.step())
+    assert order[-1] == 1
+    _drain(srv, order)
+    rec = _record(order, {"srv": srv})
+    assert rec["requests"][("srv", 0)][1] >= 1      # saved at least once
+    return rec
+
+
 def lanes_partition_and_preserve_output(s: Side):
     msrv = s.serving.MultiLaneServer(s.cfg, s.params, n_lanes=2, max_len=32,
                                      total_slots=2, heuristic="crit_aware")
@@ -171,13 +196,13 @@ def non_preemptive_lane_isolation(s: Side):
 SCENARIOS = [hi_preempts_lo, non_preemptive_runs_to_completion,
              bank_pool_eviction_and_restore,
              lanes_partition_and_preserve_output,
-             non_preemptive_lane_isolation]
+             non_preemptive_lane_isolation, hi_saves_lo_with_one_resident_slot]
 
 
 # the tinyllama cases keep their bare scenario ids
 CASES = [pytest.param(f, ARCH, id=f.__name__) for f in SCENARIOS] + \
-    [pytest.param(f, a, id=f"{f.__name__}-{a}") for a in (HYBRID, MLA_MOE, MOE)
-     for f in SCENARIOS]
+    [pytest.param(f, a, id=f"{f.__name__}-{a}")
+     for a in (HYBRID, MLA_MOE, MOE, XLSTM, VLM) for f in SCENARIOS]
 
 
 @pytest.mark.parametrize("scenario,arch", CASES)
