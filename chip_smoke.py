@@ -109,7 +109,31 @@ and then, failing on the first phase that goes wrong:
    directory: every point a miss, the rows equal a pin of the reference
    ``Campaign``'s rows for that engine, a second run all hits with the
    same rows; (c) fig11's multi-accelerator ``FuncSweep`` at 2 sets, the
-   same way.
+   same way;
+10. (run after 9, before 6) training: (a) ``lm.loss_fn`` and
+   ``torch.autograd.grad`` of every parameter on the card against the
+   CPU, fp32 with TF32 off, for each family's smoke config (xlstm also
+   through its chunkwise mLSTM) and full-width tinyllama-1.1b cut to 2
+   layers (B 1, S 128), which is run again with TF32 on as a control
+   that must exceed the bound; (b) each kernel wrapper refuses CUDA inputs that
+   require grad, and a ``make_train_step`` call launches no kernel; (c)
+   full-width, full-depth TinyLlama-1.1B trains 8 steps of 8 x 512
+   tokens from ``batch_for_arch`` through ``make_train_step`` in bf16 on
+   fp32 master weights with bf16 moments: finite losses and grad norms,
+   every leaf changed and still fp32; median step time, tokens/s, peak
+   card memory and the model's arithmetic as a share of 989 TFLOP/s;
+   (d) the trained weights, cast to their serving placement, through
+   ``make_prefill_step`` (22 flash launches, a 512-token prompt,
+   ``max_len`` 1024) and 8 teacher-forced ``make_decode_step`` steps (22
+   decode launches each) against ``lm.forward``'s logits at the same
+   positions, and above the bound against its logits at the next position
+   (the control); (e) ``repro_torch.launch.train`` on tinyllama-1.1b cut
+   to 2 layers: 4 steps saving every 2, then a second process resumes
+   from step 2: the state the first held at step 2, the arrays on disk
+   and the state the second restored on the card have one sha256, and
+   the resumed losses equal the uninterrupted run's.  One
+   ``{"train": ...}`` line holds (c), (d) and (e) with the card's name
+   and power limit.
 
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.  Everything printed is also written to
@@ -1922,6 +1946,522 @@ def phase_campaign(dev, jit_run=None, full=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 10. training
+# ---------------------------------------------------------------------------
+
+# 10 (a): (arch, layers or None for the config's, batch, tokens) -- each
+# family's smoke config (xlstm also at 32 tokens: its chunkwise mLSTM; the
+# hybrid at 64: its 32-token window inside the sequence) and full-width
+# tinyllama-1.1b cut to 2 of 22 layers
+TRAIN_GRAD_CASES = (("tinyllama-1.1b-smoke", None, 2, 16),
+                    ("recurrentgemma-2b-smoke", None, 2, 64),
+                    ("llama4-maverick-400b-a17b-smoke", None, 2, 16),
+                    ("deepseek-v2-lite-16b-smoke", None, 2, 16),
+                    ("xlstm-125m-smoke", None, 2, 16),
+                    ("xlstm-125m-smoke", None, 2, 32),
+                    ("llava-next-34b-smoke", None, 2, 16),
+                    ("musicgen-large-smoke", None, 2, 16),
+                    ("tinyllama-1.1b", 2, 1, 128))
+# card against CPU, fp32 with TF32 off, the same operations summed in other
+# orders: the loss within 1e-5 relative; each leaf's gradient within
+# GRAD_RTOL x that leaf's largest CPU gradient, the CPU tests' bound
+# against the JAX package (fp32 readings: ~2e-6 of the scale at most).  The
+# full-width cut is run once more with TF32 on as the control this check
+# exists to catch, and that reading must lie above the bound
+GRAD_RTOL = 1e-4
+# the trained TinyLlama served in bf16 through the kernels against
+# forward's blocked attention on the same bf16 weights: both round every
+# activation to bf16 in other places through 22 layers.  The bound is
+# TRAIN_SERVE_TOL x the largest |logit| of the position: one bf16 ulp of
+# it (2^-7 at the bottom of a binade) to two (2^-8 at its top), the least
+# that a one-ulp flip of the largest logit passes.  The control, the
+# logits of the weights before training (the fault of serving other
+# weights than the trained ones), must lie above it.  Forward's next
+# position is read too: 8 steps from random weights leave the logits
+# nearly alike from one position to the next, so a position fault is
+# held by phase 3 (kernels against plain versions in fp32) and the CPU
+# tests of prefill and decode against forward, not by this phase
+TRAIN_SERVE_TOL = 8e-3
+# a resumed process's printed losses against the uninterrupted run's:
+# 4 decimals printed, and CUDA's atomics (the embedding's index backward)
+# make the backward nondeterministic in the last bits
+RESUME_LOSS_TOL = 2e-3
+# launch/train.py on a depth cut: ``python -c TRAIN_CLI <layers> <args...>``
+# (from the repo's root), printing ``saved <step> <digest>`` for each state
+# it checkpoints and ``restored <step> <digest> <devices>`` for the state a
+# resumed run restores
+TRAIN_CLI = """
+import dataclasses, sys
+from chip_smoke import state_digest, tensor_items
+from repro_torch import configs
+from repro_torch.launch import train
+from repro_torch.pytree import tree_leaves
+n = int(sys.argv[1])
+train.get_config = lambda name: dataclasses.replace(configs.get_config(name),
+                                                    n_layers=n)
+
+
+class Manager(train.CheckpointManager):
+    def maybe_save(self, step, state, extra=None):
+        if step % self.interval == 0:
+            print(f"saved {step} {state_digest(tensor_items(state))}")
+        return super().maybe_save(step, state, extra)
+
+    def restore_or_init(self, templates, init_fn, device=None):
+        state, step, extra = super().restore_or_init(templates, init_fn,
+                                                     device)
+        devs = sorted({t.device.type for t in tree_leaves(state)})
+        print(f"restored {step} {state_digest(tensor_items(state))} "
+              + ",".join(devs))
+        return state, step, extra
+
+
+train.CheckpointManager = Manager
+sys.exit(train.main(sys.argv[2:]))
+"""
+
+
+def state_digest(items) -> str:
+    """sha256 over each (key, array, dtype name) of ``items``, in order:
+    the key, dtype name and shape, then the array's bytes."""
+    h = hashlib.sha256()
+    for key, a, dtype in items:
+        h.update(f"{key} {dtype} {tuple(a.shape)}\n".encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def tensor_items(state):
+    """(group/path, array, dtype name) of a checkpoint state's tensors, in
+    the order of its npz files (bf16 as its uint16 bits)."""
+    from repro_torch.pytree import to_numpy, tree_items
+    for group in sorted(state):
+        for path, t in tree_items(state[group]):
+            yield (f"{group}/{path}", *to_numpy(t))
+
+
+def train_cfg(arch, n_layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
+
+
+def _worst_grad(gc, gd) -> tuple:
+    """(largest max|err| / max|g| over the leaves, its leaf): card
+    gradients ``gd`` against CPU ones ``gc``, flat dicts by path."""
+    worst, where = 0.0, None
+    for path, g in gc.items():
+        assert gd[path].dtype == torch.float32, path
+        scale = float(g.abs().max())
+        err = max_err(gd[path].cpu(), g)
+        ratio = err / scale if scale else (0.0 if err <= 1e-7 else np.inf)
+        if ratio >= worst:
+            worst, where = ratio, path
+    return worst, where
+
+
+def phase_train_grads(dev, cases=TRAIN_GRAD_CASES) -> dict:
+    """10 (a): each case's loss, metrics and every leaf's gradient on the
+    card against the CPU, fp32 (TF32 off), from the same master weights
+    and batch; in a MoE family every call's experts must agree first.
+    The full-width cut again with TF32 on: the control, which must fail
+    the bound.  Returns each case's largest gradient error over its
+    leaf's scale, and the control's."""
+    from repro_torch.data import batch_for_arch
+    from repro_torch.models import ffn, lm
+    from repro_torch.models.common import CPU_RC
+    from repro_torch.pytree import tree_items
+    from repro_torch.runtime.trainer import loss_and_grads
+    log("phase 10 (a): loss_fn and every gradient, card against CPU, fp32 "
+        "(TF32 off)")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    for arch, n_layers, B, S in cases:
+        cfg = train_cfg(arch, n_layers)
+        p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0), CPU_RC,
+                               "cpu", master=True)
+        p_dev = _tree_to(p_cpu, dev)
+        batch = {k: torch.from_numpy(v)
+                 for k, v in batch_for_arch(cfg, S, B, 0).items()}
+        with ffn.record_routes() as r_cpu:
+            (lc, mc), gc = loss_and_grads(cfg, p_cpu, batch, CPU_RC)
+        with ffn.record_routes() as r_dev:
+            (ld, md), gd = loss_and_grads(cfg, p_dev, _tree_to(batch, dev),
+                                          CPU_RC)
+        gc, gd = dict(tree_items(gc)), dict(tree_items(gd))
+        _same_experts(f"{arch} loss_fn", r_cpu, r_dev)
+        tag = f"{arch}{f' {n_layers} layers' if n_layers else ''} B{B} S{S}"
+        check_close(f"{tag} loss", ld.cpu(), lc, 0.0, 1e-5)
+        for k in mc:
+            err = max_err(md[k].cpu(), mc[k])
+            assert err <= 1e-6 + 1e-5 * float(mc[k].abs()), (tag, k, err)
+        worst, where = _worst_grad(gc, gd)
+        log(f"  {tag}: metrics {sorted(mc)} ok; {len(gc)} gradients, worst "
+            f"max|err| / max|g| {worst:.2e} ({where}; tol {GRAD_RTOL:.0e}) "
+            f"{'ok' if worst <= GRAD_RTOL else 'FAIL'}")
+        assert worst <= GRAD_RTOL, (tag, where, worst)
+        out[tag] = worst
+        if n_layers:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                _, g32 = loss_and_grads(cfg, p_dev, _tree_to(batch, dev),
+                                        CPU_RC)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            control, where = _worst_grad(gc, dict(tree_items(g32)))
+            log(f"  {tag} with TF32 on (control): worst max|err| / max|g| "
+                f"{control:.2e} ({where}), above the bound "
+                f"{'ok' if control > GRAD_RTOL else 'FAIL'}")
+            assert control > GRAD_RTOL, (tag, where, control)
+            out[f"{tag} TF32 on (control)"] = control
+            del g32
+        del p_dev, gd
+    torch.cuda.empty_cache()
+    return out
+
+
+def _refuses(fn, *args, **kw):
+    try:
+        fn(*args, **kw)
+    except RuntimeError as e:
+        if "no backward" in str(e):
+            return
+        raise
+    raise AssertionError(f"{fn.__name__} ran on inputs that require grad")
+
+
+def phase_train_fault(dev) -> None:
+    """10 (b): each kernel wrapper, given CUDA inputs that require grad
+    under grad mode, raises; one ``make_train_step`` call launches no
+    kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for_arch
+    from repro_torch.kernels import _build, ops
+    from repro_torch.models.common import CPU_RC
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime import trainer
+    log("phase 10 (b): the kernel wrappers refuse inputs that require grad")
+
+    def r(*shape):
+        return torch.randn(shape, device=dev).requires_grad_(True)
+    _refuses(ops.flash_attention_tpu, r(1, 2, 64, 64), r(1, 2, 64, 64),
+             r(1, 2, 64, 64))
+    _refuses(ops.decode_attention_tpu, r(1, 2, 64), r(1, 2, 64, 64),
+             r(1, 2, 64, 64), 3)
+    _refuses(ops.rglru_scan_tpu, r(1, 8, 64), r(1, 8, 64), r(1, 64))
+    _refuses(ops.systolic_gemm, r(128, 128), r(128, 128))
+    _refuses(ops.gemm_partial, r(128, 128), r(128, 128),
+             torch.zeros(128, 128, device=dev), 0, 1, bk=128)
+    cfg = get_config("tinyllama-1.1b-smoke")
+    params, opt = trainer.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), CPU_RC, OptConfig(),
+        device=dev)
+    before = dict(_build.LAUNCHES)
+    trainer.make_train_step(cfg, CPU_RC, OptConfig())(
+        params, opt, batch_for_arch(cfg, 16, 2, 0))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == before, (before, _build.LAUNCHES)
+    log("  all five raise; make_train_step launched no kernel ok")
+
+
+def train_flops(cfg, n_params, B, S) -> float:
+    """The model's arithmetic a training step: 6 x parameters x tokens
+    (forward and backward of every weight product, the embedding
+    lookup counted as one) plus attention's QK^T and PV over the full S x
+    S scores that the blocked attention computes (fwd + bwd: 3 x 4 B H S^2
+    dh a layer)."""
+    return 6.0 * n_params * B * S + \
+        12.0 * cfg.n_layers * B * cfg.n_heads * S * S * cfg.dh
+
+
+def profile_train_step(cfg, rc, opt_cfg, step_fn, params, opt, batch) -> dict:
+    """Where a training step's time goes: the gradients
+    (``loss_and_grads``: forward, recompute, backward) and the AdamW
+    update timed apart, synchronised; then one more step under
+    torch.profiler: the card's busy time (the sum of its kernels' and
+    copies' device time) against the step's wall time, and the kernels
+    that take the most of it.  Every result is dropped."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import adamw_update
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.runtime.trainer import loss_and_grads
+    dev = tree_leaves(params)[0].device
+    tb = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = loss_and_grads(cfg, params, tb, rc)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = adamw_update(params, grads, opt, opt_cfg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del grads, out
+    split = {"grads_ms": (t1 - t0) * 1e3, "adamw_ms": (t2 - t1) * 1e3}
+    log(f"  gradients (forward, recompute, backward) {split['grads_ms']:.1f} "
+        f"ms, AdamW update {split['adamw_ms']:.1f} ms")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    del out
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(_device_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=_device_us, reverse=True)[:10]
+    rec = {**split, "profiled_step_wall_ms": wall, "device_busy_ms": busy,
+           "device_idle_share": 1.0 - busy / wall,
+           "device_ops": sum(e.count for e in kernels),
+           "top_kernels_ms": {f"{e.key[:70]} (x{e.count})":
+                              _device_us(e) / 1e3 for e in top}}
+    log(f"  one profiled step: wall {wall:.1f} ms (profiler on), card busy "
+        f"{busy:.1f} ms in {rec['device_ops']} kernels and copies, idle "
+        f"share {rec['device_idle_share']:.3f}")
+    for name, ms in rec["top_kernels_ms"].items():
+        log(f"    {ms:8.2f} ms  {name}")
+    return rec
+
+
+def phase_train_full(dev, card, power, arch="tinyllama-1.1b", batch=8,
+                     seq=512, steps=8, prompt=512, max_len=1024,
+                     decode_steps=8) -> dict:
+    """10 (c) full-width, full-depth training in bf16 on fp32 master
+    weights with bf16 moments, ``steps`` steps of ``batch`` x ``seq``
+    tokens through ``make_train_step``; (d) the trained weights in their
+    serving placement through ``make_prefill_step`` (flash kernel) and
+    ``make_decode_step`` (decode kernel), teacher-forced, against
+    ``forward`` at the same positions.  Returns the record and the (d)
+    launches."""
+    from repro_torch.configs.base import _pattern_for
+    from repro_torch.data import batch_for_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm
+    from repro_torch.models.common import RuntimeConfig
+    from repro_torch.optim import OptConfig
+    from repro_torch.pytree import tree_items, tree_leaves
+    from repro_torch.runtime import trainer
+    cfg, rc = train_cfg(arch), RuntimeConfig()
+    opt_cfg = OptConfig(lr=3e-3, warmup_steps=2, decay_steps=8)
+    log(f"phase 10 (c): {cfg.name} full width, {cfg.n_layers} layers, bf16 "
+        f"compute on fp32 master weights, bf16 moments, {steps} steps of "
+        f"{batch} x {seq} tokens")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = trainer.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), rc, opt_cfg,
+        device=dev)
+    n_params = sum(v.numel() for v in tree_leaves(params))
+    first = _tree_to(params, "cpu")
+    step_fn = trainer.make_train_step(cfg, rc, opt_cfg)
+    before = dict(_build.LAUNCHES)
+    times, losses, gnorms, lrs = [], [], [], []
+    for s in range(steps):
+        b = batch_for_arch(cfg, seq, batch, s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+        log(f"  step {s}: loss {losses[-1]:.4f} gnorm {gnorms[-1]:.3f} lr "
+            f"{lrs[-1]:.2e} {times[-1]:.1f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_train_step(cfg, rc, opt_cfg, step_fn, params, opt,
+                              batch_for_arch(cfg, seq, batch, steps))
+    assert _build.LAUNCHES == before, (before, _build.LAUNCHES)
+    assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), \
+        (losses, gnorms)
+    for (path, new), old in zip(tree_items(params), tree_leaves(first)):
+        assert new.dtype == torch.float32, (path, new.dtype)
+        assert not torch.equal(new.cpu(), old), f"{path} did not change"
+    assert {v.dtype for v in tree_leaves(opt["m"])} == {torch.bfloat16}
+    med = statistics.median(times[1:])
+    flops = train_flops(cfg, n_params, batch, seq)
+    rec = {"arch": cfg.name, "params": n_params, "batch": batch, "seq": seq,
+           "steps": steps, "losses": losses, "grad_norms": gnorms,
+           "lrs": lrs, "step_ms": times, "median_step_ms_after_step_1": med,
+           "tokens_per_s": batch * seq / med * 1e3,
+           "peak_memory_gib": peak / 2 ** 30,
+           "model_tflop_per_step": flops / 1e12,
+           "share_of_989_tflops": flops / (med * 1e-3) / PEAK_BF16,
+           "profile": prof, "card": card, "power_limit": power}
+    log(f"  {n_params / 1e9:.3f} B parameters, every leaf changed and fp32; "
+        f"median step {med:.1f} ms after step 1 (first {times[0]:.1f} ms), "
+        f"{rec['tokens_per_s']:.0f} tokens/s, peak card memory "
+        f"{rec['peak_memory_gib']:.2f} GiB, {flops / 1e12:.2f} TFLOP a step "
+        f"= {rec['share_of_989_tflops']:.3f} of 989 TFLOP/s; no kernel "
+        "launched ok")
+
+    log(f"phase 10 (d): the trained weights served through the kernels, a "
+        f"{prompt}-token prompt (max_len {max_len}) and {decode_steps} "
+        "teacher-forced decode steps against forward")
+    with torch.no_grad():
+        serve = lm.place_params(params, rc, dev)
+    del params, opt
+    torch.cuda.empty_cache()
+    toks = torch.from_numpy(batch_for_arch(cfg, max_len, 1, 1000)["tokens"])
+    n_attn = _pattern_for(cfg).count("attn")
+    _build.reset_launches()
+    logits, cache = trainer.make_prefill_step(cfg, rc, max_len=max_len)(
+        serve, {"tokens": toks[:, :prompt]})
+    torch.cuda.synchronize()
+    n_flash = _build.LAUNCHES["flash_attention"]
+    assert n_flash == n_attn and _build.LAUNCHES["decode_attention"] == 0, \
+        _build.LAUNCHES
+    outs = [logits]
+    decode = trainer.make_decode_step(cfg, rc)
+    _build.reset_launches()
+    for t in range(decode_steps):
+        logits, cache = decode(serve, toks[:, prompt + t].to(dev), cache)
+        outs.append(logits)
+    torch.cuda.synchronize()
+    n_decode = _build.LAUNCHES["decode_attention"]
+    assert n_decode == n_attn * decode_steps and \
+        _build.LAUNCHES["flash_attention"] == 0, _build.LAUNCHES
+    with torch.no_grad():
+        full, _ = lm.forward(cfg, serve, {"tokens": toks}, rc)
+        untrained, _ = lm.forward(cfg, lm.place_params(first, rc, dev),
+                                  {"tokens": toks}, rc)
+    del first
+
+    def rel_err(got, want):
+        return max_err(got, want) / float(want.float().abs().max())
+    errs, rel, control, nxt = [], [], [], []
+    for i, got in enumerate(outs):
+        pos = prompt - 1 + i
+        got, want = got.float().cpu(), full[:, pos].float().cpu()
+        errs.append(check_close(f"position {pos} logits", got, want, 0.0,
+                                TRAIN_SERVE_TOL))
+        rel.append(rel_err(got, want))
+        control.append(rel_err(got, untrained[:, pos].cpu()))
+        if i + 1 < len(outs):
+            nxt.append(rel_err(got, full[:, pos + 1].cpu()))
+    same = sum(int(torch.equal(o.argmax(-1).cpu(),
+                               full[:, prompt - 1 + i].argmax(-1).cpu()))
+               for i, o in enumerate(outs))
+    log(f"  flash {n_flash} launches a prefill, decode {n_decode} in "
+        f"{decode_steps} steps ({n_attn} a step); greedy token equal at "
+        f"{same} of {len(outs)} positions; max|err| / max|logit| "
+        f"{max(rel):.2e} (tol {TRAIN_SERVE_TOL:.0e})")
+    log(f"  control, against forward on the weights before training: "
+        f"max|err| / max|logit| at least {min(control):.2e}, above the "
+        f"bound {'ok' if min(control) > TRAIN_SERVE_TOL else 'FAIL'}; "
+        f"against forward's next position: {min(nxt):.2e} – "
+        f"{max(nxt):.2e}")
+    assert min(control) > TRAIN_SERVE_TOL, control
+    rec.update(serve_max_logit_err=max(errs), serve_max_rel_err=max(rel),
+               serve_untrained_min_rel_err=min(control),
+               serve_next_position_rel_err=[min(nxt), max(nxt)],
+               serve_argmax_equal=same, serve_positions=len(outs),
+               serve_flash_launches=n_flash, serve_decode_launches=n_decode)
+    del serve, cache, full, untrained
+    torch.cuda.empty_cache()
+    return rec, {"flash_attention": n_flash, "decode_attention": n_decode}
+
+
+def _train_lines(out: str) -> dict:
+    """{step: loss} of launch/train.py's ``step ... loss=`` lines."""
+    return {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"^step\s+(\d+) loss=(\S+) ", out, re.M)}
+
+
+def phase_train_resume(dev, arch="tinyllama-1.1b", n_layers=2, batch=4,
+                       seq=128, steps=4, every=2) -> dict:
+    """10 (e): ``repro_torch.launch.train`` on ``arch`` cut to
+    ``n_layers`` at full width: ``steps`` steps saving every ``every``,
+    then a second process resuming from step ``every`` (its checkpoint
+    alone copied beside it) runs to ``steps``.  The digest of the state
+    the first process held when it saved step ``every``, of the arrays on
+    disk, and of the state the second process restored on the card are
+    equal; the resumed losses equal the uninterrupted run's within
+    RESUME_LOSS_TOL."""
+    from repro_torch.models.common import RuntimeConfig
+    from repro_torch.optim import OptConfig
+    from repro_torch.pytree import tree_items
+    from repro_torch.runtime import trainer
+    log(f"phase 10 (e): launch/train.py on {arch} cut to {n_layers} layers, "
+        f"{steps} steps saving every {every}, then a resumed process")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        def run(ckpt):
+            cmd = [sys.executable, "-c", TRAIN_CLI, str(n_layers), "--arch",
+                   arch, "--steps", str(steps), "--batch", str(batch),
+                   "--seq", str(seq), "--log-every", "1", "--ckpt-every",
+                   str(every), "--ckpt-dir", str(ckpt), "--device", dev.type]
+            p = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                               timeout=600, env=dict(
+                                   os.environ, PYTHONPATH=str(ROOT / "src")))
+            assert p.returncode == 0, p.stdout + p.stderr
+            return p.stdout
+        t0 = time.perf_counter()
+        full = run(tmp / "a")
+        saved = tmp / "a" / f"step_{every:08d}"
+        shutil.copytree(saved, tmp / "b" / saved.name)
+        resumed = run(tmp / "b")
+        wall = time.perf_counter() - t0
+        assert f"resumed from step {every}" in resumed, resumed
+        la, lb = _train_lines(full), _train_lines(resumed)
+        assert sorted(la) == list(range(steps)), full
+        assert sorted(lb) == list(range(every, steps)), resumed
+        diff = max(abs(lb[s] - la[s]) for s in lb)
+        assert diff <= RESUME_LOSS_TOL, (la, lb)
+        held = dict(re.findall(r"^saved (\d+) (\w+)$", full, re.M))
+        got = re.search(rf"^restored {every} (\w+) (\S+)$", resumed, re.M)
+        assert held.keys() == {str(s) for s in range(every, steps + 1, every)}
+        assert got and got.group(2) == dev.type, resumed
+        # the arrays on disk, in the state's order, as the manifest names
+        # their dtypes
+        cfg = train_cfg(arch, n_layers)
+        p_meta, o_meta = trainer.init_train_state(
+            cfg, torch.Generator(), RuntimeConfig(), OptConfig(),
+            device="meta")
+        manifest = json.loads((saved / "manifest.json").read_text())
+        assert manifest["extra"] == {"data_step": every}
+        disk = []
+        for group, tmpl in (("opt", o_meta), ("params", p_meta)):
+            with np.load(saved / f"{group}.npz") as z:
+                for path, _ in tree_items(tmpl):
+                    disk.append((f"{group}/{path}", z[path],
+                                 manifest["groups"][group][path]["dtype"]))
+        on_disk = state_digest(disk)
+        assert held[str(every)] == on_disk == got.group(1), \
+            (held, on_disk, got.group(1))
+        log(f"  the state held at step {every}, its {len(disk)} arrays on "
+            f"disk and the state restored on the {dev.type} by the resumed "
+            f"process: one sha256 ({on_disk[:16]}...) ok; resumed losses "
+            f"{lb} against {la}: max |diff| {diff:.1e} (tol "
+            f"{RESUME_LOSS_TOL}) ok; {wall:.1f} s for both processes")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"arch": f"{arch} {n_layers} layers", "batch": batch, "seq": seq,
+            "uninterrupted": la, "resumed": lb, "max_loss_diff": diff,
+            "arrays_equal": len(disk), "state_sha256": on_disk,
+            "wall_s": wall}
+
+
+def phase_train(dev, card, power) -> dict:
+    """Phase 10: (a) gradients card vs CPU, (b) the wrappers' refusal,
+    (c) + (d) full TinyLlama-1.1B training and serving its weights, (e)
+    resume through launch/train.py.  Prints the ``{"train": ...}`` line and
+    returns the (d) launches."""
+    t0 = time.perf_counter()
+    rec = {"grads_worst_rel_err": phase_train_grads(dev)}
+    phase_train_fault(dev)
+    full, launches = phase_train_full(dev, card, power)
+    rec.update(full)
+    rec["resume"] = phase_train_resume(dev)
+    rec["phase10_s"] = time.perf_counter() - t0
+    RECORD["train"] = rec
+    log(json.dumps({"train": rec}))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # 6. timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -2262,6 +2802,7 @@ def main() -> int:
     RECORD["open_loop"] = phase_open_loop(dev)
     RECORD["lockstep"] = phase_sim(dev)
     RECORD["campaign"] = phase_campaign(dev, RECORD["lockstep"]["full"][1])
+    train_launches = phase_train(dev, card, power)
     launches = {
         "decode_attention": dense_launches["decode_attention"],
         "flash_attention": dense_launches["flash_attention"],
@@ -2281,6 +2822,11 @@ def main() -> int:
         "systolic_gemm": gemm_launches["systolic_gemm"]}
     assert all(n > 0 for n in launches.values()), launches
     rows = phase_timing(dev, launches, card, power)
+    # phase 10 (d) serves the trained TinyLlama at the same shapes as the
+    # tinyllama rows: its launches beside theirs
+    for r in rows:
+        if r["name"] in train_launches:
+            r["launches_trained_serving"] = train_launches[r["name"]]
     RECORD["wall_s"] = time.perf_counter() - t_start
 
     out_dir = ROOT / "results"

@@ -1,0 +1,2 @@
+from repro_torch.checkpointing.checkpoint import (  # noqa: F401
+    CheckpointManager, latest_step, load_checkpoint, save_checkpoint)

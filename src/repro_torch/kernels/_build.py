@@ -206,6 +206,19 @@ def check_aligned(*tensors: torch.Tensor) -> None:
                              f"(strides {t.stride()}, {t.dtype})")
 
 
+def check_no_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record this call: the kernels write into
+    fresh buffers through ctypes, so their outputs carry no ``grad_fn``
+    and a loss built on them would leave its inputs without gradients.
+    It raises on every device, the CPU's plain versions included, so that
+    no device trains through a kernel wrapper; training runs the model's
+    differentiable twins (``lm.forward``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward: call it under "
+                           "torch.no_grad() or on tensors that do not "
+                           "require grad")
+
+
 def reset_launches() -> None:
     for counts in (LAUNCHES, GEMM_ROUTES):
         for k in counts:

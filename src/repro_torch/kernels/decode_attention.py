@@ -80,6 +80,7 @@ def decode_attention_tpu(q, k_cache, v_cache, pos, *, block_s: int = 1024):
     ``block_s`` keeps the reference's divisibility assert; the CUDA
     kernel splits the live cache by :func:`split_plan`.
     """
+    _build.check_no_grad("decode_attention_tpu", q, k_cache, v_cache)
     B, Hq, dh = q.shape
     _, Hkv, S, _ = k_cache.shape
     G = Hq // Hkv

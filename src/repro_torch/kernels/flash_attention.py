@@ -40,6 +40,7 @@ def flash_attention_tpu(q, k, v, *, causal: bool = True, block_q: int = 512,
     the CUDA kernel tiles on its own and masks the ragged edge.
     ``window`` 0 means none; a window needs ``causal``.
     """
+    _build.check_no_grad("flash_attention_tpu", q, k, v)
     B, Hq, S, dh = q.shape
     _, Hkv, Skv, _ = k.shape
     dv = v.shape[-1]

@@ -2,8 +2,10 @@
 
 A tensor on the CPU goes to the kernel's plain version (``kernels/ref.py``);
 a CUDA tensor goes to the hand-written kernel, or the call raises.  There
-is no fallback from one to the other.  ``_build.LAUNCHES`` counts the
-kernel launches of each wrapper.
+is no fallback from one to the other.  The kernels have no backward: on
+any device, a call that autograd would record (grad mode on, an input
+that requires grad) raises ``RuntimeError``.  ``_build.LAUNCHES`` counts
+the kernel launches of each wrapper.
 """
 from __future__ import annotations
 

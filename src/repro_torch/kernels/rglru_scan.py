@@ -116,6 +116,7 @@ def rglru_scan_tpu(a, b, h0, *, block_s: int = 256, block_d: int = 256):
     ``block_s``/``block_d`` keep the reference's divisibility asserts;
     the CUDA kernel tiles as :func:`scan_plan` says.
     """
+    _build.check_no_grad("rglru_scan_tpu", a, b, h0)
     B, S, D = a.shape
     bs, bd = min(block_s, S), min(block_d, D)
     assert S % bs == 0 and D % bd == 0

@@ -151,6 +151,7 @@ def _launch_gemm(a, b, acc_in, out) -> GemmPlan:
 def systolic_gemm(a, b, *, bm: int = DEFAULT_BM, bn: int = DEFAULT_BN,
                   bk: int = DEFAULT_BK, out_dtype=None):
     """C = A @ B with an fp32 accumulator.  A (M,K), B (K,N)."""
+    _build.check_no_grad("systolic_gemm", a, b)
     M, K = a.shape
     K2, N = b.shape
     assert K == K2
@@ -175,6 +176,7 @@ def gemm_partial(a, b, acc, k_begin: int, k_end: int, *,
     units of bk blocks.  The full product is recovered by chaining calls
     until k_end == K // bk and casting.
     """
+    _build.check_no_grad("gemm_partial", a, b, acc)
     M, K = a.shape
     _, N = b.shape
     bm, bn, bk = min(bm, M), min(bn, N), min(bk, K)

@@ -9,13 +9,21 @@ kernel; on a CPU tensor they run the kernels' plain versions.  MLA's
 prefill runs the flash kernel with a value head dim (128) below the key's
 (192); its weight-absorbed decode is PyTorch operations, as the reference's
 is jnp outside any Pallas kernel.
+
+Training differentiates the model, and the kernels have no backward: its
+forward runs ``blocked_attention`` and ``blocked_local_attention``,
+twins of the reference's jnp ``flash_attention`` and ``local_attention``
+in PyTorch operations (the same blocks, masks, online softmax and fp32
+products), each query block under a checkpoint as there.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, rmsnorm, rope_cos_sin
+from repro_torch.models.common import (apply_rope, checkpoint, rmsnorm,
+                                       rope_cos_sin)
 
 NEG_INF = -1e30
 
@@ -58,6 +66,99 @@ def local_attention(q, k, v, *, window: int, q_offset=0, block_q: int = 512):
                             v.transpose(1, 2), causal=True, block_q=block_q,
                             block_kv=block_q, window=window)
     return o.transpose(1, 2)
+
+
+def blocked_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                      block_q: int = 512, block_kv: int = 512, softcap=None):
+    """Blocked online-softmax attention, differentiable (the reference's
+    jnp ``flash_attention``).  q (B,Sq,Hq,Dqk), k (B,Skv,Hkv,Dqk), v
+    (B,Skv,Hkv,Dv) -> (B,Sq,Hq,Dv), scaled by Dqk ** -0.5.
+
+    KV blocks are visited in order with masking (masked blocks are not
+    skipped); products of the input dtype are summed in fp32, and the
+    probabilities are cast to v's dtype before the PV product.
+    ``q_offset`` is the absolute position of q[0].  Each query block runs
+    under a checkpoint, so its backward recomputes the KV loop instead of
+    keeping score blocks.
+    """
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    bq, bkv = min(block_q, Sq), min(block_kv, Skv)
+    assert Sq % bq == 0 and Skv % bkv == 0, (Sq, bq, Skv, bkv)
+    scale = Dh ** -0.5
+
+    def q_block(qi, i, k, v):
+        q_pos = q_offset + i * bq + torch.arange(bq, device=q.device)
+        qf = qi.float()
+        m = torch.full((B, Hq, bq), NEG_INF, device=q.device)
+        l = torch.zeros((B, Hq, bq), device=q.device)
+        acc = torch.zeros((B, Hq, bq, v.shape[-1]), device=q.device)
+        for j in range(Skv // bkv):
+            kj, vj = k[:, j * bkv:(j + 1) * bkv], v[:, j * bkv:(j + 1) * bkv]
+            if G > 1:
+                kj = kj.repeat_interleave(G, dim=2)
+                vj = vj.repeat_interleave(G, dim=2)
+            s = torch.einsum("bqhd,bkhd->bhqk", qf, kj.float()) * scale
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            if causal:
+                k_pos = j * bkv + torch.arange(bkv, device=q.device)
+                mask = q_pos[:, None] >= k_pos[None, :]
+                s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            # a block masked whole leaves the running max at NEG_INF, where
+            # exp(s - m) would be 1: zero the masked entries
+            p = torch.exp(s - m_new[..., None]) * (s > NEG_INF * 0.5)
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            pv = torch.einsum("bhqk,bkhd->bhqd", p.to(vj.dtype).float(),
+                              vj.float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        return acc / torch.clamp(l, min=1e-30)[..., None]   # (B,Hq,bq,Dv)
+
+    outs = [checkpoint(q_block, q[:, i * bq:(i + 1) * bq], i, k, v)
+            for i in range(Sq // bq)]
+    return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)
+
+
+def blocked_local_attention(q, k, v, *, window: int, q_offset: int = 0,
+                            block_q: int = 512):
+    """Banded causal attention, differentiable (the reference's jnp
+    ``local_attention``): each query attends the previous ``window`` keys
+    (inclusive of self).  q (B,Sq,Hq,Dh), k/v (B,Skv,Hkv,Dh) with Skv ==
+    q_offset + Sq -> (B,Sq,Hq,Dh).  Keys are padded on the left by
+    ``window`` so each query block takes a span of window + block keys;
+    each block runs under a checkpoint.
+    """
+    B, Sq, Hq, Dh = q.shape
+    G = Hq // k.shape[2]
+    bq = min(block_q, Sq)
+    assert Sq % bq == 0
+    span = window + bq
+    scale = Dh ** -0.5
+    kp = F.pad(k, (0, 0, 0, 0, window, 0))
+    vp = F.pad(v, (0, 0, 0, 0, window, 0))
+    qpos = torch.arange(bq, device=q.device)[:, None]
+    kpos = torch.arange(span, device=q.device)[None, :] - window
+
+    def q_block(qi, i, kp, vp):
+        start = q_offset + i * bq
+        ks, vs = kp[:, start:start + span], vp[:, start:start + span]
+        if G > 1:
+            ks = ks.repeat_interleave(G, dim=2)
+            vs = vs.repeat_interleave(G, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", qi.float(), ks.float()) * scale
+        valid = (kpos <= qpos) & (kpos > qpos - window) & (kpos + start >= 0)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bkhd->bhqd", p.to(vs.dtype).float(),
+                            vs.float())
+
+    outs = [checkpoint(q_block, q[:, i * bq:(i + 1) * bq], i, kp, vp)
+            for i in range(Sq // bq)]
+    return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, pos: int):

@@ -1,25 +1,66 @@
-"""Shared model components: norms, RoPE, initialiser, runtime config
-(twin of the reference's ``models/common.py``)."""
+"""Shared model components: norms, RoPE, initialiser, runtime config,
+rematerialisation and the cross-entropy losses (twin of the reference's
+``models/common.py``)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
-    """Numerics knobs.  The reference's sharding, remat and cost-probe
-    knobs have no counterpart in the eager single-card port."""
+    """Numerics and memory knobs.  The reference's sharding and
+    cost-probe knobs have no counterpart in the eager single-card port.
+
+    ``remat_policy``: ``"none"``, ``"full"`` (a layer's backward
+    recomputes its forward) or ``"dots"`` (it keeps the matrix products'
+    outputs and recomputes the rest); ``remat_groups`` G > 1, when it
+    divides the layer count L, also checkpoints each of G groups of L / G
+    layers.
+    """
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    remat_policy: str = "none"          # none | full | dots
+    remat_groups: int = 0               # >1: double remat over G groups
     flash_block_q: int = 512
     flash_block_kv: int = 512
+    z_loss: float = 1e-4
 
 
 DEFAULT_RC = RuntimeConfig()
 CPU_RC = RuntimeConfig(compute_dtype=torch.float32)
+
+# the reference's checkpoint_dots_with_no_batch_dims: the outputs of
+# products without batch dims (every weight product reaches aten.mm;
+# attention's batched einsums reach aten.bmm and are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def checkpoint(fn, *args, **kwargs):
+    """``fn(*args)`` whose backward recomputes its forward
+    (``jax.checkpoint``): non-reentrant, so it nests and takes any
+    arguments and outputs."""
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+
+def remat_wrap(fn, rc: RuntimeConfig):
+    """``fn`` under ``rc.remat_policy``'s checkpoint (``"none"``: as is)."""
+    if rc.remat_policy == "none":
+        return fn
+    if rc.remat_policy == "dots":
+        ctx = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return functools.partial(checkpoint, fn, context_fn=ctx)
+    return functools.partial(checkpoint, fn)
 
 
 # ---------------------------------------------------------------------------
@@ -117,3 +158,45 @@ def _fill_trunc_normal(out, generator, scale: float) -> None:
     w = torch.empty(out.shape, dtype=torch.float32, device=out.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     out.copy_(w.mul_(scale))
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def _nll_lse(logits, labels, valid):
+    """(lse - the label's logit, lse), fp32; labels < 0 read class 0."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return lse - ll, lse
+
+
+def softmax_xent_sums(logits, labels, z_loss_coef: float = 1e-4):
+    """Sum-reduced xent pieces for chunked accumulation.
+
+    Returns (sum nll+z, sum nll, n_valid); the sums fp32."""
+    valid = labels >= 0
+    nll, lse = _nll_lse(logits, labels, valid)
+    z = z_loss_coef * torch.square(lse)
+    zero = torch.zeros_like(nll)
+    return (torch.sum(torch.where(valid, nll + z, zero)),
+            torch.sum(torch.where(valid, nll, zero)), torch.sum(valid))
+
+
+def softmax_xent(logits, labels, z_loss_coef: float = 1e-4, mask=None):
+    """Causal-LM cross-entropy with z-loss; labels<0 are ignored.
+
+    logits (..., V) fp-any; labels (...,) int.
+    """
+    valid = labels >= 0
+    if mask is not None:
+        valid = torch.logical_and(valid, mask.bool())
+    nll, lse = _nll_lse(logits, labels, valid)
+    z = z_loss_coef * torch.square(lse)
+    zero = torch.zeros_like(nll)
+    per_tok = torch.where(valid, nll + z, zero)
+    n = torch.clamp(torch.sum(valid), min=1)
+    return torch.sum(per_tok) / n, {
+        "nll": torch.sum(torch.where(valid, nll, zero)) / n, "ntokens": n}

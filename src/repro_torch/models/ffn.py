@@ -75,7 +75,7 @@ def _top_k(probs, k: int):
         nxt = vals[..., k] if k < vals.shape[-1] else torch.zeros_like(
             vals[..., 0])
         _ROUTES.append({"experts": idx[..., :k].cpu(),
-                        "margin": (vals[..., k - 1] - nxt).cpu()})
+                        "margin": (vals[..., k - 1] - nxt).detach().cpu()})
     return vals[..., :k], idx[..., :k]
 
 

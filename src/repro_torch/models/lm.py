@@ -1,5 +1,5 @@
-"""Decoder LM: the reference's seven families (twin of the serving side
-of its ``models/lm.py``):
+"""Decoder LM: the reference's seven families (twin of its
+``models/lm.py``):
 
   dense / vlm / audio : uniform (attn + SwiGLU) blocks; ``vlm`` prepends
                         precomputed patch embeddings (``vis_embeds``),
@@ -11,10 +11,16 @@ of its ``models/lm.py``):
   xlstm               : groups of (slstm_every - 1) mLSTM blocks + 1 sLSTM
 
 Entry points are plain functions of (cfg, params, ...): ``init_params``,
-``params_from_jax``, ``embed_inputs``, ``lm_logits``, ``init_cache``,
-``prefill`` and ``decode_step``.  Parameters are a nested dict with the
-reference's pytree layout: layer parameters stacked on a leading layer
-dim, weights in (in, out) layout.  The layer scan becomes a Python loop.
+``params_from_jax``, ``place_params``, ``embed_inputs``, ``lm_logits``,
+``forward``, ``chunked_xent``, ``loss_fn``, ``init_cache``, ``prefill``
+and ``decode_step``.  Parameters are a nested dict with the reference's
+pytree layout: layer parameters stacked on a leading layer dim, weights
+in (in, out) layout.  The layer scan becomes a Python loop.
+
+Two placements of one tree: serving keeps weights in the compute dtype
+(cast once at load), training keeps master weights, every leaf in the
+parameter dtype (``master=True``), and the block bodies cast each weight
+to the activations' dtype where they use it, as the reference does.
 
 Caches keep the reference's layout, with ``pos`` a host int so that
 neither the kernels (which take it by value) nor the serving loop's
@@ -40,9 +46,16 @@ termination test need a device sync:
 holding them with ``pos + 1``.
 
 Tokens are (B, S) ids, (B, S, K) codebook ids for ``audio`` (decode:
-(B,) and (B, K)); ``audio`` logits are (..., K, V).  The training side
-(``forward``, ``chunked_xent``, ``loss_fn``, the MoE metrics summed over
-layers) is not ported yet.
+(B,) and (B, K)); ``audio`` logits are (..., K, V).
+
+``forward`` and ``loss_fn`` are differentiable and launch no kernel: the
+kernels have no backward, so ``forward`` runs the twins of the
+reference's jnp attention (``attention.blocked_attention``,
+``blocked_local_attention``) and associative RG-LRU scan
+(``recurrent.rglru_assoc_scan``), while ``prefill`` and ``decode_step``
+(under ``torch.no_grad``) run the kernels.  ``forward`` returns the MoE
+families' ``moe_aux``, ``moe_z`` and ``moe_dropped`` summed over layers;
+each layer (or group of layers) runs under ``common.remat_wrap``.
 """
 from __future__ import annotations
 
@@ -57,7 +70,9 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.common import (DEFAULT_RC, RuntimeConfig, apply_norm,
-                                       dense_init, norm_params)
+                                       checkpoint, dense_init, norm_params,
+                                       remat_wrap, softmax_xent_sums)
+from repro_torch.pytree import tree_leaves
 from repro_torch.runtime.device import resolve_device
 
 Params = Dict[str, Any]
@@ -80,21 +95,47 @@ def _check_family(cfg: ArchConfig) -> None:
                                   f"({', '.join(FAMILIES)} only)")
 
 
-def _place(tree, rc: RuntimeConfig, device, dtype=None):
-    """Move a parameter tree to ``device``: norm parameters in the
-    parameter dtype, ``lam`` in fp32, every weight in the compute dtype.
+def _device(device) -> torch.device:
+    """``resolve_device``, letting a meta device through: a meta tree has
+    a parameter tree's shapes and dtypes and no values (the counterpart
+    of ``jax.eval_shape``), as a checkpoint's template."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+def _leaf_dtype(key: str, rc: RuntimeConfig, inherited, master: bool):
+    if key == "lam" or (key in _FP32_KEYS and not master):
+        return torch.float32
+    if master or key in _NORM_KEYS:
+        return rc.param_dtype
+    return inherited
+
+
+def _place(tree, rc: RuntimeConfig, device, dtype=None, master=False):
+    """Move a parameter tree to ``device``.  Serving: norm parameters in
+    the parameter dtype, ``lam`` and the sLSTM's fp32 leaves in fp32,
+    every weight in the compute dtype.  ``master`` (training): every leaf
+    in the parameter dtype, ``lam`` in fp32, as the reference's
+    ``init_params`` makes them.
 
     The reference casts each weight with ``.astype(x.dtype)`` where it
     is used; casting once at load gives the same values (the cast is the
     same rounding) and keeps the bf16 models at half their fp32 size on
-    the card.
+    the card.  Training cannot: AdamW updates the master weights, whose
+    small updates a bf16 leaf would round away.
     """
     if isinstance(tree, dict):
-        return {k: _place(v, rc, device,
-                          torch.float32 if k in _FP32_KEYS
-                          else rc.param_dtype if k in _NORM_KEYS else dtype)
+        return {k: _place(v, rc, device, _leaf_dtype(k, rc, dtype, master),
+                          master)
                 for k, v in tree.items()}
     return tree.to(device=device, dtype=dtype or rc.compute_dtype)
+
+
+def place_params(params, rc: RuntimeConfig = DEFAULT_RC, device=None):
+    """``params`` in the serving placement on ``device``: e.g. trained
+    master weights cast for ``prefill`` and ``decode_step``."""
+    return _place(params, rc, _device(device))
 
 
 def _layer(tree, i: int):
@@ -282,23 +323,28 @@ def _slstm_params(cfg, g, G, dtype, device):
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                rc: RuntimeConfig = DEFAULT_RC, device=None) -> Params:
+                rc: RuntimeConfig = DEFAULT_RC, device=None, *,
+                master: bool = False) -> Params:
     """Random parameters with the reference's shapes and init scales.
 
-    ``generator`` must live on ``device`` (default: the CUDA card).  The
-    numbers differ from ``lm.init_params`` for the same seed; to compare
-    with the reference, convert its parameters with ``params_from_jax``.
+    ``generator`` must live on ``device`` (default: the CUDA card; a meta
+    device gives the tree's shapes and dtypes alone).  The numbers differ
+    from ``lm.init_params`` for the same seed; to compare with the
+    reference, convert its parameters with ``params_from_jax``.
 
-    Every leaf is made in the compute dtype, each stacked leaf one 2-D
-    slice at a time (``dense_init``), so a bf16 model never holds its
-    fp32 draw: DeepSeek-V2-Lite is 32.4 GB in bf16 and would need 64.8 GB
-    more in fp32.  The norm parameters (zeros or ones, exact in bf16) go
-    back to the parameter dtype at ``_place``; the values equal a draw
-    made in fp32 and cast once.
+    Serving: every leaf is made in the compute dtype, each stacked leaf
+    one 2-D slice at a time (``dense_init``), so a bf16 model never holds
+    its fp32 draw: DeepSeek-V2-Lite is 32.4 GB in bf16 and would need
+    64.8 GB more in fp32.  The norm parameters (zeros or ones, exact in
+    bf16) go back to the parameter dtype at ``_place``; the values equal
+    a draw made in fp32 and cast once.  ``master`` (training): every leaf
+    made in the parameter dtype; cast by ``place_params``, the same seed
+    gives the serving tree.
     """
     _check_family(cfg)
-    device = resolve_device(device)
-    g, wd = generator, rc.compute_dtype
+    device = _device(device)
+    g = generator
+    wd = rc.param_dtype if master else rc.compute_dtype
     d, L = cfg.d_model, cfg.n_layers
     # audio: one table of K codebooks x V ids, logits for every codebook
     V = cfg.n_codebooks * cfg.vocab if cfg.family == "audio" else cfg.vocab
@@ -337,14 +383,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         params["tail"] = {"rec": _rglru_block_params(cfg, g, tail, wd, device),
                           "mlp": _mlp_params(cfg, g, tail, wd, device)} \
             if tail else {}
-    return _place(params, rc, device)
+    return _place(params, rc, device, master=master)
 
 
 def params_from_jax(cfg: ArchConfig, tree, rc: RuntimeConfig = DEFAULT_RC,
-                    device=None) -> Params:
+                    device=None, *, master: bool = False) -> Params:
     """Parameters from the reference's ``lm.init_params`` pytree, which the
     caller has already converted to numpy arrays (nested dicts, stacked
-    leading layer dim, (in, out) weights)."""
+    leading layer dim, (in, out) weights); placed for serving, or with
+    ``master`` as training's master weights."""
     _check_family(cfg)
     device = resolve_device(device)
 
@@ -356,7 +403,7 @@ def params_from_jax(cfg: ArchConfig, tree, rc: RuntimeConfig = DEFAULT_RC,
             a = a.astype(np.float32)      # e.g. ml_dtypes bfloat16
         return torch.from_numpy(a)
 
-    return _place(to_torch(tree), rc, device)
+    return _place(to_torch(tree), rc, device, master=master)
 
 
 # ===========================================================================
@@ -409,35 +456,49 @@ def lm_logits(cfg: ArchConfig, params: Params, h, rc: RuntimeConfig):
 # Blocks
 # ===========================================================================
 
-def _attn_full(cfg, rc, h, p, positions, *, window=None):
+def _attn_full(cfg, rc, h, p, positions, *, window=None, train=False):
+    """Returns (h, (k, v)); ``train`` runs the differentiable twins of
+    the reference's jnp attention instead of the flash kernel."""
     x = apply_norm(cfg.norm, h, p["ln"])
     q, k, v = attn_lib.gqa_project_qkv(x, p, cfg, positions)
     if window is not None:
-        o = attn_lib.local_attention(q, k, v, window=window,
-                                     block_q=rc.flash_block_q)
+        local = attn_lib.blocked_local_attention if train \
+            else attn_lib.local_attention
+        o = local(q, k, v, window=window, block_q=rc.flash_block_q)
     else:
-        o = attn_lib.flash_attention(q, k, v, causal=True,
-                                     block_q=rc.flash_block_q,
-                                     block_kv=rc.flash_block_kv)
+        o = (attn_lib.blocked_attention if train
+             else attn_lib.flash_attention)(
+            q, k, v, causal=True, block_q=rc.flash_block_q,
+            block_kv=rc.flash_block_kv)
     o = o.reshape(o.shape[:2] + (-1,))
     return h + torch.matmul(o, p["wo"].to(o.dtype)), (k, v)
 
 
-def _mla_full(cfg, rc, h, p, positions):
+def _mla_full(cfg, rc, h, p, positions, *, train=False):
     """MLA prefill: decompressed keys and values through the flash kernel
-    (dqk 192 against dv 128 at full width).  Returns (h, (c, k_rope)),
-    the compressed cache entries."""
+    (dqk 192 against dv 128 at full width), or with ``train`` its
+    differentiable twin.  Returns (h, (c, k_rope)), the compressed cache
+    entries."""
     x = apply_norm(cfg.norm, h, p["ln"])
     q, k, v, c, kr = attn_lib.mla_prefill_qkv(x, p, cfg, positions)
-    o = attn_lib.flash_attention(q, k, v, causal=True,
-                                 block_q=rc.flash_block_q,
-                                 block_kv=rc.flash_block_kv)
+    o = (attn_lib.blocked_attention if train else attn_lib.flash_attention)(
+        q, k, v, causal=True, block_q=rc.flash_block_q,
+        block_kv=rc.flash_block_kv)
     w_o = p["w_o"].to(o.dtype).reshape(cfg.n_heads, cfg.mla.v_head_dim, -1)
     return h + torch.einsum("bshv,hvd->bsd", o, w_o), (c, kr)
 
 
 def _mlp_full(cfg, rc, h, p, act=ffn_lib.swiglu):
     return h + act(apply_norm(cfg.norm, h, p["ln"]), p)
+
+
+MOE_METRIC_KEYS = ("moe_aux", "moe_z", "moe_dropped")
+
+
+def _moe_full(cfg, rc, h, p, aux):
+    """Returns (h, aux) with the layer's MoE metrics added to ``aux``."""
+    y, metrics = ffn_lib.moe_apply(apply_norm(cfg.norm, h, p["ln"]), p, cfg)
+    return h + y, {k: aux[k] + metrics[k] for k in MOE_METRIC_KEYS}
 
 
 def _moe_nometrics(cfg, h, p):
@@ -454,13 +515,15 @@ def _moe_decode(cfg, h, p):
     return h + y.reshape(B, 1, -1)
 
 
-def _rglru_full(cfg, rc, h, p):
-    """Returns (h, (h_last fp32, conv_state))."""
+def _rglru_full(cfg, rc, h, p, *, train=False):
+    """Returns (h, (h_last fp32, conv_state)); ``train`` runs the
+    associative scan instead of the scan kernel."""
     x = apply_norm(cfg.norm, h, p["ln"])
     y = ffn_lib.gelu(torch.matmul(x, p["w_y"].to(x.dtype)))
     xb = torch.matmul(x, p["w_xb"].to(x.dtype))
     xb, conv_state = rec_lib.causal_conv1d(xb, p["conv_w"], p["conv_b"])
-    rec, h_last = rec_lib.rglru_scan(xb, p, cfg.n_heads)
+    scan = rec_lib.rglru_assoc_scan if train else rec_lib.rglru_scan
+    rec, h_last = scan(xb, p, cfg.n_heads)
     out = torch.matmul(rec * y, p["w_out"].to(x.dtype))
     return h + out, (h_last, conv_state)
 
@@ -491,10 +554,10 @@ def _mlstm_out(cfg, h, p, hh, z):
     return h + torch.matmul(hh * F.silu(z), p["w_down"].to(h.dtype))
 
 
-def _mlstm_full(cfg, rc, h, p):
+def _mlstm_full(cfg, rc, h, p, *, make_cache=True):
     """mLSTM prefill: the chunkwise form when S is a multiple (> 1) of
-    the chunk, else the parallel form and the final state.  Returns
-    (h, ((C, n, m), conv_state))."""
+    the chunk, else the parallel form and (with ``make_cache``) the final
+    state.  Returns (h, ((C, n, m) or None, conv_state))."""
     x = apply_norm(cfg.norm, h, p["ln"])
     q, k, v, log_i, log_f, z, conv_state = _mlstm_qkv(cfg, p, x)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))       # (B,H,S,dh)
@@ -505,7 +568,8 @@ def _mlstm_full(cfg, rc, h, p):
                                             chunk=chunk)
     else:
         hh = rec_lib.mlstm_parallel(q, k, v, log_i, log_f)
-        state = rec_lib.mlstm_final_state(q, k, v, log_i, log_f)
+        state = rec_lib.mlstm_final_state(q, k, v, log_i, log_f) \
+            if make_cache else None
     return _mlstm_out(cfg, h, p, hh.transpose(1, 2), z), (state, conv_state)
 
 
@@ -578,6 +642,151 @@ def _rglru_decode(cfg, rc, h, p, rh, rconv):
     rconv.copy_(conv_state)
     out = torch.matmul(rec * y[:, 0], p["w_out"].to(x.dtype))
     return h + out[:, None]
+
+
+# ===========================================================================
+# Full-sequence forward (train) and loss
+# ===========================================================================
+
+def _run_layers(rc, carry, blocks, body):
+    """The reference's layer scan as a loop: ``carry = body(carry, p)``
+    for each layer's slice ``p`` of the stacked ``blocks``, each layer
+    under ``remat_wrap``; with ``remat_groups`` G > 1 dividing the layer
+    count, each group of L / G layers also under a full checkpoint (the
+    reference's double remat)."""
+    L = tree_leaves(blocks)[0].shape[0]
+    layer = remat_wrap(body, rc)
+
+    def run(c, lo, hi):
+        for i in range(lo, hi):
+            c = layer(c, _layer(blocks, i))
+        return c
+
+    G = rc.remat_groups
+    if G > 1 and L % G == 0:
+        n = L // G
+        for g in range(G):
+            carry = checkpoint(run, carry, g * n, (g + 1) * n)
+        return carry
+    return run(carry, 0, L)
+
+
+def forward(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
+            rc: RuntimeConfig = DEFAULT_RC, return_hidden: bool = False):
+    """Full-sequence forward -> (logits, or with ``return_hidden`` the
+    pre-norm hidden state; metrics).  Differentiable; launches no
+    kernel.  ``metrics`` holds the MoE families' ``MOE_METRIC_KEYS``
+    summed over layers."""
+    h = embed_inputs(cfg, params, batch, rc)
+    B, S = h.shape[0], h.shape[1]
+    positions = torch.arange(S, device=h.device)[None].expand(B, S)
+    metrics: Dict[str, Any] = {}
+    fam, blocks = cfg.family, params["blocks"]
+    geglu = ffn_lib.geglu
+
+    def attn(h, p, window=None):
+        return _attn_full(cfg, rc, h, p, positions, window=window,
+                          train=True)[0]
+
+    def rglru(h, p):
+        return _rglru_full(cfg, rc, h, p, train=True)[0]
+
+    if fam in _DENSE:
+        def body(h, p):
+            return _mlp_full(cfg, rc, attn(h, p["attn"]), p["mlp"])
+        h = _run_layers(rc, h, blocks, body)
+    elif fam in ("moe", "mla_moe"):
+        def body(carry, p):
+            h, aux = carry
+            if fam == "moe":
+                h = _mlp_full(cfg, rc, attn(h, p["attn_a"]), p["mlp"])
+                h = attn(h, p["attn_b"])
+            else:
+                h = _mla_full(cfg, rc, h, p["attn"], positions,
+                              train=True)[0]
+            return _moe_full(cfg, rc, h, p["moe"], aux)
+        aux0 = {k: torch.zeros((), device=h.device) for k in MOE_METRIC_KEYS}
+        h, aux = _run_layers(rc, (h, aux0), blocks, body)
+        metrics.update(aux)
+    elif fam == "hybrid":
+        def body(h, p):
+            h = _mlp_full(cfg, rc, rglru(h, p["rec0"]), p["mlp0"], geglu)
+            h = _mlp_full(cfg, rc, rglru(h, p["rec1"]), p["mlp1"], geglu)
+            h = attn(h, p["attn"], window=cfg.rglru.window)
+            return _mlp_full(cfg, rc, h, p["mlp2"], geglu)
+        h = _run_layers(rc, h, blocks, body)
+        for i in range(_hybrid_group_counts(cfg)[1]):
+            p = _layer(params["tail"], i)
+            h = _mlp_full(cfg, rc, rglru(h, p["rec"]), p["mlp"], geglu)
+    elif fam == "xlstm":
+        n_m = _xlstm_groups(cfg)[1]
+
+        def body(h, p):
+            for j in range(n_m):
+                h = _mlstm_full(cfg, rc, h, _layer(p["m"], j),
+                                make_cache=False)[0]
+            return _slstm_full(cfg, rc, h, p["s"])[0]
+        h = _run_layers(rc, h, blocks, body)
+    else:
+        _check_family(cfg)
+
+    if return_hidden:
+        return h, metrics
+    return lm_logits(cfg, params, h, rc), metrics
+
+
+LOSS_CHUNK = 512
+
+
+def chunked_xent(cfg: ArchConfig, params: Params, h, labels,
+                 rc: RuntimeConfig):
+    """Cross-entropy without materializing full-sequence fp32 logits.
+
+    S is taken in chunks of ``LOSS_CHUNK`` (or whole when S is not a
+    multiple); each chunk projects h -> logits and reduces to sums under
+    a checkpoint, so the backward recomputes a chunk's logits instead of
+    keeping them.  h (B,S,D) normed; labels (B,S), audio (B,S,K).
+    """
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    S = h.shape[1]
+    chunk = LOSS_CHUNK if S % LOSS_CHUNK == 0 else S
+
+    def body(hc, lc):
+        logits = torch.matmul(hc, w.to(hc.dtype))
+        if cfg.family == "audio":
+            logits = logits.reshape(logits.shape[:-1]
+                                    + (cfg.n_codebooks, cfg.vocab))
+        return softmax_xent_sums(logits, lc, z_loss_coef=rc.z_loss)
+
+    tot = nll = n = torch.zeros((), device=h.device)
+    for c0 in range(0, S, chunk):
+        t, n_, nv = checkpoint(body, h[:, c0:c0 + chunk],
+                               labels[:, c0:c0 + chunk])
+        tot, nll, n = tot + t, nll + n_, n + nv
+    n = torch.clamp(n, min=1.0)
+    return tot / n, {"nll": nll / n, "ntokens": n}
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
+            rc: RuntimeConfig = DEFAULT_RC):
+    """(loss, metrics): the z-lossed cross-entropy of ``batch["labels"]``
+    (< 0 ignored) plus the MoE families' ``moe_aux`` and ``moe_z``.  A
+    vlm batch's patch positions carry no label."""
+    h, metrics = forward(cfg, params, batch, rc, return_hidden=True)
+    labels = torch.as_tensor(batch["labels"], device=h.device).long()
+    if cfg.family == "vlm" and "vis_embeds" in batch:
+        nf = batch["vis_embeds"].shape[1]
+        pad = torch.full(labels.shape[:1] + (nf,), -1, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    h = apply_norm(cfg.norm, h, params["out_norm"])
+    loss, lm_metrics = chunked_xent(cfg, params, h, labels, rc)
+    metrics.update(lm_metrics)
+    for k in ("moe_aux", "moe_z"):
+        if k in metrics:
+            loss = loss + metrics[k]
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ===========================================================================

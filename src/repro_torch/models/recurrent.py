@@ -9,7 +9,9 @@ version; both walk S in order and round a*h and +b apart, so they agree
 bit for bit.  The reference runs an associative scan with ``h0`` folded
 into the first step instead; both compute h_t = a_t h_{t-1} + b_t, in
 other orders of rounding.  The decode step stays plain torch, as the
-reference's has no kernel.
+reference's has no kernel.  Training runs ``rglru_assoc_scan``, the
+reference's associative scan in PyTorch operations (the kernel has no
+backward).
 
 The xLSTM cells are plain PyTorch operations: the reference has no Pallas
 kernel for them.  The fp32 upcasts, the casts back to the input dtype,
@@ -62,6 +64,51 @@ def rglru_scan(x, p, n_heads, h0=None):
     # one block over the whole (S, D): the reference's divisibility
     # asserts then hold for any prompt length
     hh = ops.rglru(a.contiguous(), b.contiguous(), h0, block_s=S, block_d=D)
+    return hh.to(x.dtype), hh[:, -1]
+
+
+def _interleave(a, b):
+    """a0 b0 a1 b1 ... along dim 1; a has as many entries as b or one
+    more."""
+    n = b.shape[1]
+    out = torch.stack([a[:, :n], b], dim=2).flatten(1, 2)
+    return torch.cat([out, a[:, n:]], dim=1) if a.shape[1] > n else out
+
+
+def associative_scan(combine, elems):
+    """Inclusive scan of the list ``elems`` along dim 1 under the
+    associative ``combine``: ``jax.lax.associative_scan``'s recursion
+    (pairs combined, the half-length scan, the even entries filled in),
+    so its products round in the reference's order; log depth in S."""
+    n = elems[0].shape[1]
+    if n < 2:
+        return elems
+    odd = associative_scan(combine, combine([e[:, 0:-1:2] for e in elems],
+                                            [e[:, 1::2] for e in elems]))
+    if n % 2 == 0:
+        even = combine([e[:, :-1] for e in odd], [e[:, 2::2] for e in elems])
+    else:
+        even = combine(odd, [e[:, 2::2] for e in elems])
+    even = [torch.cat([e[:, :1], r], dim=1) for e, r in zip(elems, even)]
+    return [_interleave(e, o) for e, o in zip(even, odd)]
+
+
+def rglru_assoc_scan(x, p, n_heads, h0=None):
+    """Parallel RG-LRU over a sequence by associative scan, differentiable
+    (the reference's ``rglru_scan``).  x (B, S, d_rnn); h0 (B, d_rnn)
+    optional, folded into the first step.  Returns (y (B,S,d_rnn),
+    h_last (B,d_rnn) fp32)."""
+    a, b = _rglru_coeffs(x, p, n_heads)
+    if h0 is not None:
+        # h_1 = a_1 h0 + b_1
+        b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]],
+                      dim=1)
+
+    def combine(c1, c2):
+        (a1, b1), (a2, b2) = c1, c2
+        return [a1 * a2, a2 * b1 + b2]
+
+    _, hh = associative_scan(combine, [a, b])
     return hh.to(x.dtype), hh[:, -1]
 
 

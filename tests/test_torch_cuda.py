@@ -1,6 +1,8 @@
-"""The port's CUDA kernels against their plain versions on the card, and
-the lockstep simulation engine's CUDA graphs against their pins and the
-CPU.
+"""The port's CUDA kernels against their plain versions on the card, the
+lockstep simulation engine's CUDA graphs against their pins and the CPU,
+and training on the card: gradients against the CPU, the kernel
+wrappers' refusal to be differentiated, and trained weights served
+through the kernels against ``lm.forward``.
 
 Marked ``cuda``: they need an NVIDIA card and ``nvcc`` and skip anywhere
 else.  On the card they run without the JAX package:
@@ -626,3 +628,126 @@ def test_jit_campaign_on_the_card_equals_the_cpu_and_its_pin(sim, tmp_path):
                    device="cpu").collect()
     assert Campaign(small, cache_dir=tmp_path / "card2",
                     workers=1).collect() == cpu
+
+
+# ---------------------------------------------------------------------------
+# training: chip_smoke.py phase 10 (a), (b) and (d) at smoke size
+# ---------------------------------------------------------------------------
+
+# one smoke config of each family, at a length that exercises it (the
+# hybrid's 32-token window inside 64 tokens, xLSTM's chunkwise mLSTM)
+TRAIN_SMOKE = [("tinyllama-1.1b-smoke", 16), ("recurrentgemma-2b-smoke", 64),
+               ("llama4-maverick-400b-a17b-smoke", 16),
+               ("deepseek-v2-lite-16b-smoke", 16), ("xlstm-125m-smoke", 32),
+               ("llava-next-34b-smoke", 16), ("musicgen-large-smoke", 16)]
+
+
+def _loss_and_grads(cfg, params, batch, rc):
+    from repro_torch.pytree import tree_items
+    from repro_torch.runtime.trainer import loss_and_grads
+    (loss, _), grads = loss_and_grads(cfg, params, batch, rc)
+    return loss, dict(tree_items(grads))
+
+
+@pytest.mark.parametrize("arch,S", TRAIN_SMOKE)
+def test_loss_and_every_gradient_on_the_card_equal_the_cpu(gen, arch, S):
+    """fp32, TF32 off: the loss within 1e-5 relative, each leaf's gradient
+    within 1e-4 of that leaf's largest CPU gradient (the CPU tests' bound
+    against the JAX package); no kernel launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_for_arch
+    from repro_torch.models import lm
+    from repro_torch.models.common import CPU_RC
+    cfg = get_config(arch)
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0), CPU_RC,
+                           "cpu", master=True)
+    batch = {k: torch.from_numpy(v)
+             for k, v in batch_for_arch(cfg, S, 2, 0).items()}
+    lc, gc = _loss_and_grads(cfg, p_cpu, batch, CPU_RC)
+    _build.reset_launches()
+    ld, gd = _loss_and_grads(cfg, _to_device(p_cpu),
+                             {k: v.cuda() for k, v in batch.items()}, CPU_RC)
+    assert sum(_build.LAUNCHES.values()) == 0, _build.LAUNCHES
+    assert abs(float(ld) - float(lc)) <= 1e-5 * abs(float(lc))
+    for path, g in gc.items():
+        assert _err(gd[path].cpu(), g) <= 1e-4 * float(g.abs().max()) + \
+            1e-7, path
+
+
+def _to_device(tree):
+    if isinstance(tree, dict):
+        return {k: _to_device(v) for k, v in tree.items()}
+    return tree.cuda()
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad(gen):
+    def r(*shape):
+        return _randn(gen, *shape).requires_grad_(True)
+    calls = [lambda: flash_attention_tpu(r(1, 2, 64, 64), r(1, 2, 64, 64),
+                                         r(1, 2, 64, 64)),
+             lambda: decode_attention_tpu(r(1, 2, 64), r(1, 2, 64, 64),
+                                          r(1, 2, 64, 64), 3),
+             lambda: rglru_scan_tpu(r(1, 8, 64), r(1, 8, 64), r(1, 64)),
+             lambda: systolic_gemm(r(128, 128), r(128, 128)),
+             lambda: gemm_partial(r(128, 128), r(128, 128),
+                                  torch.zeros(128, 128, device="cuda"), 0, 1,
+                                  bk=128)]
+    _build.reset_launches()
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+    assert sum(_build.LAUNCHES.values()) == 0
+    with torch.no_grad():
+        for call in calls:
+            call()
+    assert sum(_build.LAUNCHES.values()) == 5
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b-smoke",
+                                  "recurrentgemma-2b-smoke",
+                                  "deepseek-v2-lite-16b-smoke"])
+def test_trained_weights_through_the_kernels_match_forward(gen, arch):
+    """Two bf16 train steps on fp32 master weights (no kernel launched),
+    then the weights in their serving placement: a 16-token prefill and
+    4 teacher-forced decode steps through the kernels against forward's
+    logits at the same positions, within 5e-2 x the position's largest
+    logit (bf16 activations rounded in other places on each side); one
+    flash launch a prefill and one decode launch a step per attention
+    layer, one scan launch per RG-LRU layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import _pattern_for
+    from repro_torch.data import batch_for_arch
+    from repro_torch.models import lm
+    from repro_torch.models.common import RuntimeConfig
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime import trainer
+    cfg, rc = get_config(arch), RuntimeConfig()
+    opt_cfg = OptConfig(lr=3e-3, warmup_steps=1)
+    params, opt = trainer.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), rc, opt_cfg)
+    step = trainer.make_train_step(cfg, rc, opt_cfg)
+    _build.reset_launches()
+    for s in range(2):
+        params, opt, m = step(params, opt, batch_for_arch(cfg, 32, 2, s))
+        assert bool(torch.isfinite(m["loss"]))
+    assert sum(_build.LAUNCHES.values()) == 0
+    serve = lm.place_params(params, rc)
+    toks = torch.from_numpy(batch_for_arch(cfg, 32, 1, 9)["tokens"]).cuda()
+    pattern = _pattern_for(cfg)
+    n_attn = 0 if cfg.family == "xlstm" else pattern.count("attn")
+    logits, cache = trainer.make_prefill_step(cfg, rc, max_len=32)(
+        serve, {"tokens": toks[:, :16]})
+    assert _build.LAUNCHES["flash_attention"] == n_attn
+    assert _build.LAUNCHES["rglru_scan"] == pattern.count("rglru")
+    outs = [logits]
+    decode = trainer.make_decode_step(cfg, rc)
+    for t in range(4):
+        logits, cache = decode(serve, toks[:, 16 + t], cache)
+        outs.append(logits)
+    assert _build.LAUNCHES["decode_attention"] == 4 * (
+        0 if cfg.family == "mla_moe" else n_attn)
+    with torch.no_grad():
+        full, _ = lm.forward(cfg, serve, {"tokens": toks}, rc)
+    for i, got in enumerate(outs):
+        want = full[:, 15 + i].float()
+        assert _err(got, want) <= 5e-2 * float(want.abs().max()), i

@@ -65,7 +65,14 @@ def test_every_port_module_is_found():
                  "repro_torch.experiments.cache",
                  "repro_torch.experiments.metrics",
                  "repro_torch.experiments.runner",
-                 "repro_torch.experiments.multiacc"):
+                 "repro_torch.experiments.multiacc",
+                 "repro_torch.pytree",
+                 "repro_torch.data", "repro_torch.data.pipeline",
+                 "repro_torch.optim", "repro_torch.optim.adamw",
+                 "repro_torch.optim.compression",
+                 "repro_torch.checkpointing",
+                 "repro_torch.checkpointing.checkpoint",
+                 "repro_torch.runtime.trainer", "repro_torch.launch.train"):
         assert want in mods
 
 
