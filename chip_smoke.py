@@ -133,7 +133,23 @@ and then, failing on the first phase that goes wrong:
    and the state the second restored on the card have one sha256, and
    the resumed losses equal the uninterrupted run's.  One
    ``{"train": ...}`` line holds (c), (d) and (e) with the card's name
-   and power limit.
+   and power limit;
+11. (run after 10, before 6) sharding: (a) the FULL corpus through
+   ``simulate_jbatch`` at 1, 2 and 4 shards (each its own runner, graph
+   and CUDA stream on the card), twice each: every run's rows equal the
+   pin, points/s from the second run on a ``{"lockstep_devices": ...}``
+   line; ``lockstep_kernel_count`` equals phase 8's profiled kernel
+   launches a step; (b) the dry run (``repro_torch.launch.dryrun``) of
+   tinyllama-1.1b at train_4k and decode_32k and of qwen1.5-110b at
+   decode_32k on a fake 16x16 mesh, on the host, one ``{"dryrun": ...}``
+   line each with the host's CPU count; (c) full-width tinyllama-1.1b at
+   prefill_32k (global batch 2) and decode_32k (global batch 16, the
+   cache at position 32767): the step plainly, then on DTensors under
+   ``axis_rules`` on a 1-rank (1, 1) CUDA mesh, bit-equal logits and
+   caches and 22 kernel launches, then the port's dry run of the cell on
+   a 1-rank mesh: its argument bytes equal the real tensors', its peak
+   within 0.8-1.25 of the card's ``max_memory_allocated``; one
+   ``{"sharded_cell": ...}`` line each.
 
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.  Everything printed is also written to
@@ -1627,10 +1643,53 @@ def sim_cases(lib) -> list:
     return cases
 
 
+# the kernel launches of one lockstep step of the FULL corpus, profiled
+# in a fresh process: a graph of one step (no flag), one replay.  Late in
+# this long process the trace loses events (841-865 launches a step
+# against the 866 a fresh process records, on an H100)
+STEP_LAUNCHES_CLI = """
+import torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as C
+from repro_torch.core import simulator_jit as sj
+from repro_torch.core.scheduler import Policy
+lib = C.sim_library()
+ts, seeds = C.sim_corpus(lib, **C.SIM_FULL)
+b = sj._VecBatch(ts, lib, Policy.mesc(), seeds=seeds,
+                 duration=C.SIM_FULL_DURATION, overrun_prob=0.3, cf=2.0)
+runners, states = sj._prepare(b, Policy.mesc(), seeds, C.SIM_FULL_DURATION,
+                              0.3, 2.0, False, sj._table_width(),
+                              device=torch.device("cuda"))
+r, st = runners[0], states[0]
+r._load(*st)
+one = r._capture(*st, body=lambda: r.step(r.tb, r.sc, r.c, r.k))
+r._load(*st)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    one.replay()
+    torch.cuda.synchronize()
+print(sum(e.count for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.key.lower().startswith(("memcpy", "memset"))))
+"""
+
+
+def profiled_step_launches() -> int:
+    """Kernel launches (no memcpy or memset) of one lockstep step of the
+    FULL corpus, as torch.profiler records a one-step graph's replay in
+    a fresh process (``STEP_LAUNCHES_CLI``)."""
+    p = subprocess.run([sys.executable, "-c", STEP_LAUNCHES_CLI], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert p.returncode == 0, p.stdout + p.stderr
+    return int(p.stdout.strip().splitlines()[-1])
+
+
 def profile_lockstep(runner, state, eager_steps: int = 16) -> dict:
     """One graph replay from the batch's first state: its device time
-    (CUDA events), its kernels and their busy time (torch.profiler), and
-    the same steps run eagerly with a host sync per step."""
+    (CUDA events), its kernels and their busy time (torch.profiler), the
+    same steps run eagerly with a host sync per step, and the FULL
+    corpus's kernel launches a step (``profiled_step_launches``)."""
     from torch.profiler import ProfilerActivity, profile
     S = runner.steps
     runner._load(*state)
@@ -1676,6 +1735,7 @@ def profile_lockstep(runner, state, eager_steps: int = 16) -> dict:
            "bytes_bound_ms_per_step": nbytes / PEAK_BYTES * 1e3,
            "ms_per_step": replay_ms / S,
            "kernels_per_step": n_kernels / S if n_kernels else None,
+           "kernel_launches_per_step": profiled_step_launches(),
            "busy_ms_per_step": busy_ms / S if n_kernels else None,
            "traced_span_ms": span_ms,
            "idle_share": 1.0 - busy_ms / span_ms if n_kernels else None,
@@ -1748,9 +1808,10 @@ def phase_sim(dev) -> dict:
         b = sj._VecBatch(ts, lib, Policy.mesc(), seeds=seeds,
                          duration=SIM_FULL_DURATION, overrun_prob=0.3,
                          cf=2.0)
-        runner, state = sj._prepare(b, Policy.mesc(), seeds,
-                                    SIM_FULL_DURATION, 0.3, 2.0, False,
-                                    sj._table_width(), device=dev)
+        runners, states = sj._prepare(b, Policy.mesc(), seeds,
+                                      SIM_FULL_DURATION, 0.3, 2.0, False,
+                                      sj._table_width(), device=dev)
+        runner, state = runners[0], states[0]
         assert runner.graph is not None
         prof = profile_lockstep(runner, state)
         out["profile"] = prof
@@ -2462,6 +2523,242 @@ def phase_train(dev, card, power) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 11. the lockstep engine's devices > 1, the dry run, and the sharded steps
+#     (runs after 10, before the timing of 6)
+# ---------------------------------------------------------------------------
+
+# the FULL corpus's shard counts; the dry-run cells on the 16x16 mesh;
+# full-width tinyllama-1.1b's two cells on the card, only the global
+# batch cut (from 32 and 128); the dry run's peak against the card's
+PHASE11_DEVICES = (1, 2, 4)
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"),
+                ("tinyllama-1.1b", "decode_32k"),
+                ("qwen1.5-110b", "decode_32k"))
+SHARDED_ARCH = "tinyllama-1.1b"
+SHARDED_CELLS = (("prefill_32k", 2), ("decode_32k", 16))
+PEAK_RATIO = (0.8, 1.25)
+
+
+def phase_devices(dev) -> dict:
+    """(a) The FULL corpus at ``PHASE11_DEVICES`` shards (each its own
+    runner, graph and stream on the card): every run's rows equal the
+    pin; points/s from a run with every graph already captured (a second
+    run, unless phase 8 left the runners captured).  Then
+    ``lockstep_kernel_count`` against phase 8's profiled kernels a step."""
+    from repro_torch.core import simulator_jit as sj
+    from repro_torch.core.scheduler import Policy
+    lib = sim_library()
+    ts, seeds = sim_corpus(lib, **SIM_FULL)
+    out = {}
+    for d in PHASE11_DEVICES:
+        runs = []
+        while not runs or runs[-1]["captures"]:
+            assert len(runs) < 2, runs
+            sj.reset_counts()
+            _sync(dev)
+            t0 = time.perf_counter()
+            ms = sj.simulate_jbatch(ts, lib, Policy.mesc(), seeds=seeds,
+                                    duration=SIM_FULL_DURATION, device=dev,
+                                    devices=d)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+            assert sj.metrics_digest(ms) == SIM_PINS["full/sampled"], d
+            runs.append(dict(sj.COUNTS, wall_s=wall,
+                             points_per_s=len(ts) / wall))
+        out[d] = runs[-1]
+        log(json.dumps({"lockstep_devices": dict(
+            runs[-1], devices=d, points=len(ts), digest_ok=True,
+            first_run_s=runs[0]["wall_s"] if len(runs) > 1 else None)}))
+    n = sj.lockstep_kernel_count(ts, lib, Policy.mesc(), seeds=seeds,
+                                 duration=SIM_FULL_DURATION, device=dev)
+    prof = RECORD["lockstep"]["profile"]
+    profiled = prof["kernel_launches_per_step"]
+    log(f"  lockstep_kernel_count {n}, profiled {profiled} kernel "
+        "launches a step (a fresh process)")
+    assert n == profiled, (n, profiled)
+    return {"runs": out, "kernel_count": n, "profiled": profiled}
+
+
+def phase_dryrun_cells() -> list:
+    """(b) The dry run of ``DRYRUN_CELLS`` on the fake 16x16 mesh, on the
+    host: one ``{"dryrun": ...}`` line each."""
+    from repro_torch.launch import dryrun
+    recs = []
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, False, probe=False)
+        assert rec["status"] == "ok", rec.get("error")
+        line = {"arch": arch, "shape": shape, "mesh": rec["mesh"],
+                "status": rec["status"],
+                "argument_gib": rec["argument_size_in_bytes"] / 2 ** 30,
+                "peak_gib": rec["per_device_hbm_bytes"] / 2 ** 30,
+                "fits_80gib": rec["fits_80gib"],
+                "flops_per_device": rec["flops_per_device"],
+                "collectives": {k: v["count"]
+                                for k, v in rec["collectives"].items()},
+                "collective_link_gib": rec["collective_link_bytes"] / 2 ** 30,
+                "wall_s": rec["wall_seconds"], "host_cpus": os.cpu_count()}
+        log(json.dumps({"dryrun": line}))
+        recs.append(line)
+    return recs
+
+
+def _tensor_bytes(*trees) -> int:
+    from repro_torch.pytree import tree_leaves
+    n = 0
+    for tree in trees:
+        for t in (tree_leaves(tree) if isinstance(tree, dict) else [tree]):
+            if isinstance(t, torch.Tensor):
+                n += t.numel() * t.element_size()
+    return n
+
+
+def _sharded_inputs(cfg, shape, rc, dev, seed: int = 0):
+    """(batch or tokens, cache or None) of one cell on the card, from a
+    seed: prompts of the cell's length, or one token a sequence and a
+    zero cache at its last position."""
+    from repro_torch.models import lm
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if shape.kind == "prefill":
+        return {"tokens": torch.randint(0, cfg.vocab, (
+            shape.global_batch, shape.seq_len), generator=gen,
+            device=dev)}, None
+    cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len, rc, dev)
+    cache["pos"] = shape.seq_len - 1
+    return torch.randint(0, cfg.vocab, (shape.global_batch,),
+                         generator=gen, device=dev), cache
+
+
+def phase_sharded_cell(dev, kind_name: str, batch: int) -> dict:
+    """(c) One cell of full-width ``SHARDED_ARCH`` on the card: (i) the
+    step plainly, its peak card memory from a reset; (ii) the same step
+    on DTensors under ``axis_rules`` on a 1-rank (1, 1) CUDA mesh:
+    logits and cache bit-equal to (i), and one kernel launch a layer;
+    (iii) the port's dry run of the cell on a 1-rank mesh: argument bytes
+    equal to the real tensors', its peak within ``PEAK_RATIO`` of (i)'s."""
+    import gc
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.trainer import make_decode_step, \
+        make_prefill_step
+
+    cfg = get_config(SHARDED_ARCH)
+    shape = dataclasses.replace(SHAPES_BY_NAME[kind_name],
+                                global_batch=batch)
+    rc = dryrun.cell_rc(SHARDED_ARCH, shape.kind)
+    mode = dryrun.cell_mode(SHARDED_ARCH, shape.name)
+    step = make_prefill_step(cfg, rc) if shape.kind == "prefill" \
+        else make_decode_step(cfg, rc)
+    kernel = "flash_attention" if shape.kind == "prefill" \
+        else "decode_attention"
+    gc.collect()
+    torch.cuda.empty_cache()
+    _sync(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            rc, dev)
+    inp, cache = _sharded_inputs(cfg, shape, rc, dev)
+    args_bytes = _tensor_bytes(params, inp, cache or {})
+    _sync(dev)
+    t0 = time.perf_counter()
+    if shape.kind == "prefill":
+        logits, out_cache = step(params, inp)
+    else:
+        logits, out_cache = step(params, inp, cache)
+    _sync(dev)
+    plain_s = time.perf_counter() - t0
+    cuda_peak = torch.cuda.max_memory_allocated(dev) - base
+
+    # (ii) the same step on a (1, 1) mesh
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        port = s_.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rules = sh.AxisRules(mesh, sequence_parallel=True, mode=mode)
+        dparams = sh.distribute(params, sh.param_specs(params, rules), mesh)
+        inp2, cache2 = _sharded_inputs(cfg, shape, rc, dev)
+        _build.reset_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with sh.axis_rules(rules), implicit_replication():
+            if shape.kind == "prefill":
+                dbatch = sh.distribute(inp2, sh.batch_specs(inp2, rules),
+                                       mesh)
+                dlogits, dcache = step(dparams, dbatch)
+            else:
+                dtok = sh.distribute({"t": inp2}, sh.batch_specs(
+                    {"t": inp2}, rules), mesh)["t"]
+                dcache = sh.distribute(cache2, sh.cache_specs(cache2, rules),
+                                       mesh)
+                dlogits, dcache = step(dparams, dtok, dcache)
+        _sync(dev)
+        sharded_s = time.perf_counter() - t0
+        launches = _build.LAUNCHES[kernel]
+        assert launches == cfg.n_layers, (kernel, launches)
+        assert torch.equal(dlogits.to_local(), logits), \
+            max_err(dlogits.to_local(), logits)
+        for k in ("ck", "cv"):
+            assert torch.equal(dcache[k].to_local(), out_cache[k]), k
+        assert dcache["pos"] == out_cache["pos"]
+    finally:
+        dist.destroy_process_group()
+    del params, inp, cache, logits, out_cache, dparams, inp2, cache2, \
+        dlogits, dcache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (iii) the port's dry run of the cell on a 1-rank mesh
+    rec = dryrun.measure_cell(SHARDED_ARCH, shape, (1, 1),
+                              ("data", "model"), mode=mode, rc=rc)
+    assert rec["argument_size_in_bytes"] == args_bytes, \
+        (rec["argument_size_in_bytes"], args_bytes)
+    ratio = rec["per_device_hbm_bytes"] / cuda_peak
+    out = {"arch": SHARDED_ARCH, "shape": shape.name,
+           "global_batch": shape.global_batch,
+           "reduced": {"global_batch": [SHAPES_BY_NAME[kind_name]
+                                        .global_batch, batch]},
+           "plain_s": plain_s, "sharded_s": sharded_s,
+           "launches": {kernel: launches}, "bit_equal": True,
+           "argument_bytes": args_bytes, "cuda_peak_bytes": cuda_peak,
+           "dryrun_peak_bytes": rec["per_device_hbm_bytes"],
+           "peak_ratio": ratio, "dryrun_wall_s": rec["wall_seconds"],
+           "dryrun_flops": rec["flops_per_device"]}
+    log(json.dumps({"sharded_cell": out}))
+    lo, hi = PEAK_RATIO
+    assert lo <= ratio <= hi, ratio
+    return out
+
+
+def phase_sharding(dev) -> dict:
+    """Phase 11: (a) ``phase_devices``, (b) ``phase_dryrun_cells``, (c)
+    ``phase_sharded_cell`` for each of ``SHARDED_CELLS``."""
+    log("phase 11: the lockstep engine's devices > 1, the dry run, and "
+        "sharded steps against their dry run")
+    t0 = time.perf_counter()
+    out = {"devices": phase_devices(dev),
+           "dryrun": phase_dryrun_cells(),
+           "cells": [phase_sharded_cell(dev, k, b)
+                     for k, b in SHARDED_CELLS]}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 11: {out['wall_s']:.1f} s on {os.cpu_count()} host "
+        f"CPUs")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 6. timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -2803,6 +3100,7 @@ def main() -> int:
     RECORD["lockstep"] = phase_sim(dev)
     RECORD["campaign"] = phase_campaign(dev, RECORD["lockstep"]["full"][1])
     train_launches = phase_train(dev, card, power)
+    RECORD["sharding"] = phase_sharding(dev)
     launches = {
         "decode_attention": dense_launches["decode_attention"],
         "flash_attention": dense_launches["flash_attention"],

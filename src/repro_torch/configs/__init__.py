@@ -3,8 +3,11 @@ variants), in the reference's order — ``core/program.py``'s workload
 library builds one ``arch:`` program per entry, in this order."""
 from __future__ import annotations
 
-from repro_torch.configs.base import (ArchConfig, MLAConfig, MoEConfig,
-                                      RGLRUConfig, XLSTMConfig)
+from repro_torch.configs.base import (DECODE_32K, LONG_500K, PREFILL_32K,
+                                      SHAPES, SHAPES_BY_NAME, TRAIN_4K,
+                                      ArchConfig, MLAConfig, MoEConfig,
+                                      RGLRUConfig, ShapeConfig, XLSTMConfig,
+                                      supports_shape)
 from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as DEEPSEEK_V2_LITE
 from repro_torch.configs.llama4_maverick_400b_a17b import \
     CONFIG as LLAMA4_MAVERICK
@@ -32,5 +35,13 @@ def get_config(name: str) -> ArchConfig:
     return ARCHS[name]
 
 
-__all__ = ["ArchConfig", "MLAConfig", "MoEConfig", "RGLRUConfig",
-           "XLSTMConfig", "ARCHS", "get_config"]
+def list_archs():
+    return sorted(ARCHS)
+
+
+__all__ = [
+    "ArchConfig", "MLAConfig", "MoEConfig", "RGLRUConfig", "XLSTMConfig",
+    "ShapeConfig", "SHAPES", "SHAPES_BY_NAME", "TRAIN_4K", "PREFILL_32K",
+    "DECODE_32K", "LONG_500K", "supports_shape", "ARCHS", "get_config",
+    "list_archs",
+]

@@ -1,4 +1,5 @@
-"""Architecture configuration (own copy of the reference's ``configs/base.py``).
+"""Architecture and shape configuration (own copy of the reference's
+``configs/base.py``).
 
 Every field of the reference's ``ArchConfig`` and its sub-configs is
 here, because ``core/program.py::workload_library`` builds an ``arch:``
@@ -6,6 +7,8 @@ program from every entry of ``ARCHS``.  The port's models cover all
 seven families (``models/lm.py::FAMILIES``).
 ``reduced()`` derives the smoke config exactly as the reference does,
 so every ``-smoke`` config has the same shape on both sides.
+Every workload shape is a :class:`ShapeConfig`; ``(arch, shape)`` pairs
+are the dry run's cells (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -80,6 +83,53 @@ class ArchConfig:
         return self.head_dim if self.head_dim is not None \
             else self.d_model // self.n_heads
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if the arch supports O(1)-state decode (may run long_500k)."""
+        return self.family in ("hybrid", "xlstm")
+
+    def param_count(self) -> int:
+        """Approximate total parameter count (embeddings + blocks)."""
+        d, L, V = self.d_model, self.n_layers, self.vocab
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.family == "xlstm":
+            per = 6 * d * d  # rough: qkv/proj + gates
+            return emb + L * per
+        dh, hq, hkv = self.dh, self.n_heads, self.n_kv_heads
+        attn = d * hq * dh + 2 * d * hkv * dh + hq * dh * d
+        if self.mla is not None:
+            m = self.mla
+            attn = (d * (m.kv_lora_rank + m.qk_rope_dim)
+                    + m.kv_lora_rank * hq * (m.qk_nope_dim + m.v_head_dim)
+                    + d * hq * (m.qk_nope_dim + m.qk_rope_dim)
+                    + hq * m.v_head_dim * d)
+        if self.moe is not None:
+            e = self.moe
+            moe_frac = 1.0 / e.moe_every
+            moe_ffn = (e.num_experts + e.num_shared) * 3 * d * e.d_expert + d * e.num_experts
+            ffn = moe_frac * moe_ffn + (1 - moe_frac) * 3 * d * self.d_ff
+        else:
+            ffn = 3 * d * self.d_ff
+        if self.rglru is not None:
+            pat = self.rglru.block_pattern
+            fr_attn = sum(1 for p in _pattern_for(self) if p == "attn") / L
+            rec = 3 * d * self.rglru.d_rnn + 2 * self.rglru.d_rnn
+            per = fr_attn * attn + (1 - fr_attn) * rec + 3 * d * self.d_ff
+            return int(emb + L * per)
+        return int(emb + L * (attn + ffn))
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: routed top-k + shared only)."""
+        if self.moe is None:
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        e = self.moe
+        n_moe_layers = L // e.moe_every
+        full = self.param_count()
+        all_experts = n_moe_layers * (e.num_experts + e.num_shared) * 3 * d * e.d_expert
+        active = n_moe_layers * (e.top_k + e.num_shared) * 3 * d * e.d_expert
+        return int(full - all_experts + active)
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (the reference's
         ``ArchConfig.reduced``)."""
@@ -115,3 +165,31 @@ def _pattern_for(cfg: ArchConfig):
         return ["attn"] * cfg.n_layers
     pat = cfg.rglru.block_pattern
     return [pat[i % len(pat)] for i in range(cfg.n_layers)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def supports_shape(arch: ArchConfig, shape: ShapeConfig) -> bool:
+    """long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k":
+        return arch.sub_quadratic
+    return True

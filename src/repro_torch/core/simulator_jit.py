@@ -66,13 +66,20 @@ widths (``_run_chunk``), and a point still overflowing at the maximum
 width raises an error naming it.  ``REPRO_JIT_TABLE_WIDTH`` /
 ``REPRO_JIT_TABLE_MAX`` override the ladder's bounds.
 
-The engine runs on one card.  The reference's ``shard_map`` over
-logical host devices has no counterpart yet: a split of the point axis
-across GPUs is ROADMAP queue 1 item 6.3's open part.
+``devices`` splits each span's point axis into equal shards, the
+counterpart of the reference's ``shard_map`` over logical host devices.
+Each shard has its own runner, its own captured graph and its own CUDA
+stream on the one card; the host issues one replay to every live shard
+before it reads any flag (``_run_shards``), so the shards' graphs
+overlap.  Points are independent, so the split changes no row.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import os
+import re
+import tempfile
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -89,7 +96,7 @@ from repro_torch.core.simulator_vec import (  # noqa: F401
     _RESTORE_FIXED, _RUN, _TRANS, JIT_SIM_SEMANTICS_VERSION, _VecBatch)
 from repro_torch.core.task import TaskParams
 from repro_torch.runtime.device import resolve_device
-from repro_torch.runtime.device_config import _env_int
+from repro_torch.runtime.device_config import _env_int, resolve_device_count
 from repro_torch.scenarios import (burst_multiplier_t,
                                    burst_window_index_t,
                                    demand_multiplier_t, get_scenario,
@@ -924,9 +931,11 @@ def _max_steps(b: _VecBatch, duration: float) -> int:
 
 class _Runner:
     """Static device tensors (tables, scalars, carry) and, on CUDA, the
-    captured graph of ``steps`` lockstep steps for one (shape, policy
-    class) key.  ``run`` loads a batch into the statics and steps until
-    the flag says the loop is over."""
+    captured graph of ``steps`` lockstep steps and the stream it runs on,
+    for one shard of one (shape, policy class) key.  ``start`` loads a
+    shard, ``advance`` runs one graph replay (on the CPU: the same steps
+    eagerly), ``more`` reads the flag and ``finish`` the final carry;
+    :func:`_run_shards` drives the shards of a span together."""
 
     def __init__(self, step, tb: Dict[str, np.ndarray],
                  carry: Dict[str, np.ndarray], device: torch.device,
@@ -944,6 +953,15 @@ class _Runner:
                   "arK": torch.arange(K, device=device)}
         self.flag = torch.zeros((), dtype=torch.bool, device=device)
         self.graph = None
+        # every copy, capture, replay and read of this shard is ordered
+        # on its own stream, so shards overlap on the card and a load
+        # never races another shard's replay
+        self.stream = torch.cuda.Stream(device) \
+            if device.type == "cuda" else None
+
+    def _on_stream(self):
+        return torch.cuda.stream(self.stream) if self.stream is not None \
+            else contextlib.nullcontext()
 
     def _load(self, tb, sc, carry) -> None:
         for k, v in tb.items():
@@ -959,94 +977,161 @@ class _Runner:
         alive = (self.c["pi"][:, _I_ALIVE] != 0).any()
         self.flag.copy_(alive & (self.c["steps"] < self.sc["max_steps"]))
 
-    def _capture(self, tb, sc, carry) -> None:
+    def _capture(self, tb, sc, carry, body=None, debug: bool = False):
         """Warm up one step eagerly on a side stream, reload the batch,
-        then capture ``_body``; a failed capture raises."""
+        then capture ``body`` (default ``_body``); a failed capture
+        raises.  Runs on the shard's stream; ``debug`` keeps the graph's
+        nodes for ``debug_dump``."""
+        cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
+        side.wait_stream(cur)
         with torch.cuda.stream(side):
             self.step(self.tb, self.sc, self.c, self.k)
-        torch.cuda.current_stream(self.device).wait_stream(side)
+        cur.wait_stream(side)
         self._load(tb, sc, carry)
         torch.cuda.synchronize(self.device)
-        graph = torch.cuda.CUDAGraph()
+        # a debug graph keeps its cudaGraph_t for debug_dump
+        graph = torch.cuda.CUDAGraph(keep_graph=debug)
+        if debug:
+            graph.enable_debug_mode()
         with torch.cuda.graph(graph):
-            self._body()
-        self.graph = graph
+            (body or self._body)()
         COUNTS["captures"] += 1
+        return graph
 
-    def run(self, tb, sc, carry) -> Dict[str, np.ndarray]:
-        self._load(tb, sc, carry)
-        cuda = self.device.type == "cuda"
-        if cuda and self.graph is None:
-            self._capture(tb, sc, carry)      # leaves the batch loaded
-        while True:
-            if cuda:
+    def start(self, tb, sc, carry) -> None:
+        """Load a shard (and capture the graph on first CUDA use; the
+        capture leaves the shard loaded)."""
+        with self._on_stream():
+            self._load(tb, sc, carry)
+            if self.stream is not None and self.graph is None:
+                self.graph = self._capture(tb, sc, carry)
+
+    def advance(self) -> None:
+        with self._on_stream():
+            if self.graph is not None:
                 self.graph.replay()
             else:
                 self._body()
-            COUNTS["replays"] += 1
-            COUNTS["syncs"] += 1              # the flag read
-            if not bool(self.flag):
-                break
-        out = {k: v.cpu().numpy().copy() for k, v in self.c.items()}
+        COUNTS["replays"] += 1
+
+    def more(self) -> bool:
+        """The flag of the last ``advance``: points alive and the step
+        bound not reached."""
+        with self._on_stream():
+            go = bool(self.flag)
+        COUNTS["syncs"] += 1
+        return go
+
+    def finish(self) -> Dict[str, np.ndarray]:
+        with self._on_stream():
+            out = {k: v.cpu().numpy().copy() for k, v in self.c.items()}
         COUNTS["syncs"] += 1                  # the final carry's read
         COUNTS["steps"] += int(out["steps"])
         return out
 
 
-# runners by key, oldest first; at most _MAX_RUNNERS are kept
-_RUNNERS: Dict[Tuple, _Runner] = {}
+def _run_shards(runners: Sequence[_Runner], states) -> List[Dict]:
+    """Run each shard's runner from its (tables, scalars, carry) until
+    its flag says the loop is over.  Each round issues one replay to
+    every live shard before reading any flag, so the shards' streams
+    overlap on the card; a finished shard is not replayed again.  On the
+    CPU the shards run one after another.  Returns the final carries."""
+    for r, st in zip(runners, states):
+        r.start(*st)
+    live = list(runners)
+    while live:
+        for r in live:
+            r.advance()
+        live = [r for r in live if r.more()]
+    return [r.finish() for r in runners]
+
+
+# runner groups (one runner per shard) by key, oldest first; at most
+# _MAX_RUNNERS groups are kept, so a campaign's d shards are never
+# evicted one by one
+_RUNNERS: Dict[Tuple, List[_Runner]] = {}
 _MAX_RUNNERS = 16
 
+# per-point tables (split with the points); the rest are the programs'
+# global tables, which every shard holds whole
+_TB_PER_POINT = frozenset({
+    "seed64", "valid", "key32", "period", "deadline_rel", "c_lo",
+    "is_hi", "eta", "etab", "prog_id"})
 
-def _runner_for(policy: Policy, nominal: bool, scenario,
-                tb: Dict[str, np.ndarray], carry: Dict[str, np.ndarray],
-                device: torch.device, steps: int) -> _Runner:
-    """The runner of this static class and shape set, built on first use
-    (its graph is captured on its first CUDA run)."""
+
+def _runners_for(policy: Policy, nominal: bool, scenario,
+                 tb: Dict[str, np.ndarray], carry: Dict[str, np.ndarray],
+                 device: torch.device, steps: int,
+                 shards: int = 1) -> List[_Runner]:
+    """The ``shards`` runners of this static class and (shard) shape
+    set, built on first use (each graph is captured on its first CUDA
+    run)."""
     shapes = tuple((k, v.shape) for k, v in sorted(tb.items())) \
         + tuple((k, v.shape) for k, v in sorted(carry.items()))
     key = (policy.use_banks, policy.drop_lo_in_hi, policy.preemption,
-           nominal, _PRUNE_STALE, scenario, shapes, str(device), steps)
-    r = _RUNNERS.get(key)
-    if r is None:
+           nominal, _PRUNE_STALE, scenario, shapes, str(device), steps,
+           shards)
+    rs = _RUNNERS.get(key)
+    if rs is None:
         step = _build_step(policy.use_banks, policy.drop_lo_in_hi,
                            policy.preemption, nominal, _PRUNE_STALE,
                            scenario)
         while len(_RUNNERS) >= _MAX_RUNNERS:
             _RUNNERS.pop(next(iter(_RUNNERS)))
-        r = _RUNNERS[key] = _Runner(step, tb, carry, device, steps)
-    return r
+        rs = _RUNNERS[key] = [_Runner(step, tb, carry, device, steps)
+                              for _ in range(shards)]
+    return rs
+
+
+def _shard(tree: Dict[str, np.ndarray], lo: int, hi: int,
+           per_point) -> Dict[str, np.ndarray]:
+    return {k: (v[lo:hi] if k in per_point else v) for k, v in tree.items()}
 
 
 def _prepare(b: _VecBatch, policy: Policy, seeds: Sequence[int],
              duration: float, overrun_prob: float, cf: float,
              nominal: bool, K: int, scenario=None,
-             device: torch.device = torch.device("cpu")):
-    """The runner for a prepared batch and the (tables, scalars, carry)
-    it is loaded with."""
+             device: torch.device = torch.device("cpu"), shards: int = 1):
+    """The runners of a prepared batch split into ``shards`` equal
+    shards of its points, and the (tables, scalars, carry) each is
+    loaded with."""
+    if b.P % shards:
+        raise ValueError(
+            f"sharded run needs the point count ({b.P}) divisible by "
+            f"the device count ({shards}); the span planner pads to a "
+            "devices x chunk rectangle")
     tb = _tables(b, seeds)
     carry = _carry0(b, K)
     sc = {"t_sr": float(policy.t_sr), "overrun_prob": float(overrun_prob),
           "cf": float(cf), "duration": float(duration),
           "max_steps": _max_steps(b, duration)}
-    return _runner_for(policy, nominal, scenario, tb, carry, device,
-                       GRAPH_STEPS), (tb, sc, carry)
+    c = b.P // shards
+    per_carry = frozenset(carry) - {"steps"}
+    states = [(_shard(tb, i * c, (i + 1) * c, _TB_PER_POINT), sc,
+               _shard(carry, i * c, (i + 1) * c, per_carry))
+              for i in range(shards)]
+    runners = _runners_for(policy, nominal, scenario, states[0][0],
+                           states[0][2], device, GRAPH_STEPS, shards)
+    return runners, states
 
 
 def _run_once(b: _VecBatch, policy: Policy, seeds: Sequence[int],
               duration: float, overrun_prob: float, cf: float,
               nominal: bool, K: int, scenario=None,
-              device: torch.device = torch.device("cpu")
+              device: torch.device = torch.device("cpu"), devices: int = 1
               ) -> Dict[str, np.ndarray]:
-    """One run of a prepared batch at interrupt-table width ``K``;
-    returns the final carry as NumPy arrays."""
-    runner, state = _prepare(b, policy, seeds, duration, overrun_prob, cf,
-                             nominal, K, scenario, device)
-    final = runner.run(*state)
+    """One run of a prepared batch at interrupt-table width ``K``, its
+    points split over ``devices`` shards; returns the final carry as
+    NumPy arrays (the shards' rows in order, ``steps`` their most)."""
+    runners, states = _prepare(b, policy, seeds, duration, overrun_prob,
+                               cf, nominal, K, scenario, device, devices)
+    outs = _run_shards(runners, states)
+    final = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]
+             if k != "steps"}
+    final["steps"] = np.max([o["steps"] for o in outs])
     final["overflow"] = final["pi"][:, _I_OVF] != 0
-    max_steps = state[1]["max_steps"]
+    max_steps = states[0][1]["max_steps"]
     if int(final["steps"]) >= max_steps and final["pi"][:, _I_ALIVE].any():
         raise RuntimeError(
             f"jit engine: lockstep loop hit the {max_steps}-step "
@@ -1057,16 +1142,18 @@ def _run_once(b: _VecBatch, policy: Policy, seeds: Sequence[int],
 def _run_chunk(tasksets, programs, policy, seeds, duration, overrun_prob,
                cf, demand_profile: str,
                point_ids: Optional[Sequence[int]] = None, scenario=None,
-               device: torch.device = torch.device("cpu")
+               device: torch.device = torch.device("cpu"), devices: int = 1
                ) -> List[RunMetrics]:
     """Simulate one span with the per-point overflow-retry ladder.
 
-    The span first runs at the primary interrupt-table width.  Points
-    whose table overflowed are re-run in padded sub-batches at doubled
-    widths until they fit; the counter-based RNG makes every retry
-    bit-deterministic.  A point that still overflows at the maximum
-    width raises an error naming it: metrics computed from a saturated
-    table would silently drop interrupts.
+    The span first runs at the primary interrupt-table width, split over
+    ``devices`` shards.  Points whose table overflowed are re-run in
+    padded single-shard sub-batches at doubled widths until they fit;
+    the counter-based RNG makes every retry bit-deterministic, so a
+    point's row does not depend on its batch, table width or shard.  A
+    point that still overflows at the maximum width raises an error
+    naming it: metrics computed from a saturated table would silently
+    drop interrupts.
     """
     nominal = demand_profile == "nominal"
     scenario = get_scenario(scenario)
@@ -1095,7 +1182,8 @@ def _run_chunk(tasksets, programs, policy, seeds, duration, overrun_prob,
                       overrun_prob=overrun_prob, cf=cf,
                       scenario=scenario)
         final = _run_once(b, policy, sd, duration, overrun_prob, cf,
-                          nominal, K, scenario=loop_scen, device=device)
+                          nominal, K, scenario=loop_scen, device=device,
+                          devices=devices if first else 1)
         metrics = _assemble(b, final, duration)
         overflow = final["overflow"]
         redo = []
@@ -1163,19 +1251,29 @@ def _assemble(b: _VecBatch, s: Dict[str, np.ndarray],
     return out
 
 
-def _plan_spans(n: int, chunk: int) -> List[Tuple[List[int], int]]:
-    """Split ``n`` points into ``(indices, real)`` spans of ``chunk``
-    points.  A small batch's only span shrinks to the batch; a later
-    ragged tail pads up to the full span (copies of its last point,
-    simulated and discarded) so it reuses the first span's runner."""
-    spans: List[Tuple[List[int], int]] = []
+def _plan_spans(n: int, chunk: int,
+                devices: int) -> List[Tuple[List[int], int, int]]:
+    """Split ``n`` points into ``(indices, real, devices)`` spans.
+
+    A span is one run: a ``d * c`` rectangle (``c`` points per shard)
+    padded with copies of its last point so the shards are equal;
+    padded copies are simulated and discarded.  The first (possibly
+    only) span of a small batch shrinks ``d`` and ``c`` to the batch; a
+    later ragged tail pads up to the full common shape so it reuses the
+    first span's runners.  ``devices=1`` is the one-card plan.
+    """
+    spans: List[Tuple[List[int], int, int]] = []
     lo = 0
     while lo < n:
-        real = min(chunk, n - lo)
-        width = real if lo == 0 else chunk
+        real = min(chunk * devices, n - lo)
+        if lo == 0:
+            d = min(devices, real)
+            c = min(chunk, -(-real // d))
+        else:
+            d, c = devices, chunk
         idxs = list(range(lo, lo + real))
-        idxs += [idxs[-1]] * (width - real)
-        spans.append((idxs, real))
+        idxs += [idxs[-1]] * (d * c - real)
+        spans.append((idxs, real, d))
         lo += real
     return spans
 
@@ -1189,35 +1287,96 @@ def simulate_jbatch(tasksets: Sequence[List[TaskParams]],
                     devices: Optional[int] = None,
                     scenario=None, device=None) -> List[RunMetrics]:
     """Lockstep batch simulation on ``device`` (``None``: the CUDA card,
-    raising when there is none; the CPU only when ``"cpu"`` is passed).
+    raising when there is none; the CPU only when ``"cpu"`` is passed),
+    the point axis split over ``devices`` shards (``None``: the
+    ``REPRO_DEVICES`` default; see ``runtime.device_config``).
 
-    On CUDA a span is ``batch_size`` points advanced by CUDA-graph
-    replays; on the CPU spans are at most ``_STREAM_CHUNK`` points.
-    Rows are per point and do not depend on the span, the table width
-    or the batch composition.  ``devices``: one card (``None`` or 1);
-    more raises, a split across GPUs being ROADMAP queue 1 item 6.3's
-    open part.
+    On CUDA a shard holds up to ``batch_size`` points and replays its own
+    graph on its own stream; on the CPU shards are at most
+    ``_STREAM_CHUNK`` points and run one after another.  Rows are per
+    point and do not depend on the span, the shard count, the table width
+    or the batch composition.
     """
     n = len(tasksets)
     if n != len(seeds):
         raise ValueError(f"{n} tasksets vs {len(seeds)} seeds")
-    if devices is not None and devices != 1:
-        raise ValueError(
-            f"devices={devices}: the port's lockstep engine runs on one "
-            "card; splitting the point axis across GPUs is ROADMAP queue "
-            "1 item 6.3's open part")
+    devices = resolve_device_count(devices)
     dev = resolve_device(device)
     chunk = max(1, batch_size if dev.type == "cuda"
                 else min(batch_size, _STREAM_CHUNK))
     out: List[RunMetrics] = []
-    for idxs, real in _plan_spans(n, chunk):
+    for idxs, real, d in _plan_spans(n, chunk, devices):
         COUNTS["spans"] += 1
         part = _run_chunk([tasksets[i] for i in idxs], programs, policy,
                           [int(seeds[i]) for i in idxs], duration,
                           overrun_prob, cf, demand_profile,
-                          point_ids=idxs, scenario=scenario, device=dev)
+                          point_ids=idxs, scenario=scenario, device=dev,
+                          devices=d)
         out.extend(part[:real])
     return out
+
+
+# kernel nodes of a CUDA graph's DOT dump (``CUDAGraph.debug_dump``):
+# each node is a record whose label names its type on the first line
+_DOT_NODE_RE = re.compile(r'^\s*"?\w+"?\s*\[[^\]]*label="\{?\s*(\w+)',
+                          re.M)
+_FREE_NODES = ("MEMCPY", "MEMSET", "EMPTY")
+
+
+def while_body_kernels(text: str) -> int:
+    """Kernel nodes in the DOT text of one captured lockstep step
+    (``torch.cuda.CUDAGraph.debug_dump`` of a graph captured with
+    ``enable_debug_mode``): the kernels the card launches per replay.
+    Memcpy, memset and empty nodes are skipped, as the reference's count
+    of XLA thunks in its while body skips tuple plumbing.  Divide by the
+    graph's steps for the kernels of one step."""
+    kinds = _DOT_NODE_RE.findall(text)
+    return sum(1 for k in kinds if k.upper() not in _FREE_NODES)
+
+
+def lockstep_kernel_count(tasksets: Sequence[List[TaskParams]],
+                          programs: Dict[str, Program], policy: Policy,
+                          *, seeds: Sequence[int], duration: float = 2e7,
+                          overrun_prob: float = 0.3, cf: float = 2.0,
+                          demand_profile: str = "sampled",
+                          table_width: Optional[int] = None,
+                          scenario=None, device=None) -> int:
+    """Kernels of one lockstep step for this batch's shape and
+    configuration: one step (without the replay's flag) captured in a
+    CUDA graph with debug mode on, counted by :func:`while_body_kernels`
+    in its DOT dump.  The
+    counterpart of the reference's count of XLA kernels in its while
+    body.  On the CPU it raises ``ValueError``: there is no graph to
+    count."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"lockstep_kernel_count needs a CUDA device, got "
+                         f"{dev}: there is no graph to count on the CPU")
+    nominal = demand_profile == "nominal"
+    scenario = get_scenario(scenario)
+    loop_scen = scenario if scenario is not None \
+        and scenario.affects_demand else None   # as simulate_jbatch
+    K = _table_width() if table_width is None else table_width
+    b = _VecBatch(tasksets, programs, policy,
+                  seeds=[int(s) for s in seeds], duration=duration,
+                  overrun_prob=overrun_prob, cf=cf, scenario=scenario)
+    tb = _tables(b, seeds)
+    carry = _carry0(b, K)
+    sc = {"t_sr": float(policy.t_sr), "overrun_prob": float(overrun_prob),
+          "cf": float(cf), "duration": float(duration),
+          "max_steps": _max_steps(b, duration)}
+    step = _build_step(policy.use_banks, policy.drop_lo_in_hi,
+                       policy.preemption, nominal, _PRUNE_STALE, loop_scen)
+    r = _Runner(step, tb, carry, dev, 1)
+    with r._on_stream():
+        r._load(tb, sc, carry)
+        graph = r._capture(tb, sc, carry, debug=True,
+                           body=lambda: step(r.tb, r.sc, r.c, r.k))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "step.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            return while_body_kernels(f.read())
 
 
 def metrics_digest(metrics: Sequence[RunMetrics]) -> str:

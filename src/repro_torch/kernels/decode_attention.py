@@ -5,7 +5,8 @@ On a CUDA tensor this launches ``csrc/decode_attention.cu`` once: blocks
 over chunks of the live cache (cut by :func:`split_plan`) write partial
 softmax results, which the last blocks to finish combine in the same
 launch (in runs of at most 16, then the runs).  On a CPU tensor it runs
-the plain version in ``kernels/ref.py``.
+the plain version in ``kernels/ref.py``, on a meta tensor its shapes
+(``kernels/meta.py``).
 
 Layout: q (B,Hq,dh); cache (B,Hkv,S,dh), any strides with a contiguous
 last dimension and rows that start 16-byte aligned (the model passes a
@@ -19,7 +20,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, meta, ref
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)  # instantiated in csrc/decode_attention.cu
@@ -89,6 +90,8 @@ def decode_attention_tpu(q, k_cache, v_cache, pos, *, block_s: int = 1024):
     pos = int(pos)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k_cache, v_cache, pos)
+    if q.device.type == "meta":
+        return meta.decode_attention(q, k_cache, v_cache, pos)
     if Hq % Hkv != 0:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     if not 0 <= pos < S:

@@ -6,7 +6,8 @@ rather than masking them and keeps (m, l, acc) on chip, so nothing
 score-sized reaches device memory: bf16 (the serving path) runs on the
 tensor cores (``csrc/flash_attention_mma.cu``), fp32 (the parity path) on
 the FFMA kernel of ``csrc/flash_attention.cu``.  On a CPU tensor it runs
-the plain version in ``kernels/ref.py``.  ``window > 0`` keeps the
+the plain version in ``kernels/ref.py``, on a meta tensor its shapes
+(``kernels/meta.py``).  ``window > 0`` keeps the
 keys k with q - window < k <= q, the banded attention of the reference's
 ``models/attention.py::local_attention``.
 
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, meta, ref
 
 NEG_INF = -1e30
 # (dqk, dv) pairs instantiated by both kernels (their dispatch macros):
@@ -50,6 +51,8 @@ def flash_attention_tpu(q, k, v, *, causal: bool = True, block_q: int = 512,
         raise ValueError(f"window={window} needs causal attention and >= 0")
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type == "meta":
+        return meta.flash_attention(q, k, v, causal, window)
     if Hq % Hkv != 0:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     if (dh, dv) not in HEAD_DIMS:

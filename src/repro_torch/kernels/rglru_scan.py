@@ -8,7 +8,8 @@ card; one lane per channel walks S in order with h in a register (so the
 result equals the plain version bit for bit), while the block's other
 warps keep a ring of (T steps x C channels) tiles of a and b in flight
 into shared memory by cp.async.  a and b are read once and h written
-once.  On a CPU tensor it runs the plain version in ``kernels/ref.py``.
+once.  On a CPU tensor it runs the plain version in ``kernels/ref.py``,
+on a meta tensor its shapes (``kernels/meta.py``).
 
 Inputs a, b fp32 (B, S, D) (precomputed gates; see models.recurrent);
 h0 (B, D) initial state.  Returns h (B, S, D) in a's dtype.
@@ -20,7 +21,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, meta, ref
 
 N_SM = 132                      # the H100 SXM's SMs
 # what csrc/rglru_scan.cu instantiates: channels a block owns (one chain
@@ -122,6 +123,8 @@ def rglru_scan_tpu(a, b, h0, *, block_s: int = 256, block_d: int = 256):
     assert S % bs == 0 and D % bd == 0
     if a.device.type == "cpu":
         return ref.rglru_scan_ref(a, b, h0)
+    if a.device.type == "meta":
+        return meta.rglru_scan(a, b, h0)
     if b.shape != a.shape or tuple(h0.shape) != (B, D):
         raise ValueError(f"shapes a {tuple(a.shape)}, b {tuple(b.shape)}, "
                          f"h0 {tuple(h0.shape)} do not match")

@@ -14,7 +14,8 @@ where a base or row stride is not a multiple of 16 bytes), fp32 operands
 to ``csrc/gemm.cu`` (FFMA, pipelined by cp.async; fp32 stays off TF32).
 ``systolic_gemm`` seeds the accumulator with zeros and casts on the way
 out, ``gemm_partial`` seeds it from ``acc`` and writes it back in fp32.
-On a CPU tensor they run the plain version in ``kernels/ref.py``.  The
+On a CPU tensor they run the plain version in ``kernels/ref.py``, on a
+meta tensor their shapes (``kernels/meta.py``).  The
 signatures, asserts, block clamping (``min(b*, dim)``) and output dtypes
 are the reference's; ``bm``/``bn`` name the reference's VMEM tile and the
 kernels tile on their own, while ``bk`` keeps its meaning as the
@@ -29,7 +30,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, meta, ref
 
 DEFAULT_BM = 256
 DEFAULT_BN = 256
@@ -160,6 +161,8 @@ def systolic_gemm(a, b, *, bm: int = DEFAULT_BM, bn: int = DEFAULT_BN,
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
         return ref.gemm_ref(a, b, out_dtype)
+    if a.device.type == "meta":
+        return meta.gemm(a, b, None, out_dtype)
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     _launch_gemm(a, b, None, out)
     _build.LAUNCHES["systolic_gemm"] += 1
@@ -187,6 +190,8 @@ def gemm_partial(a, b, acc, k_begin: int, k_end: int, *,
         return ref.gemm_partial_ref(a, b, acc, k_begin, k_end, bk)
     a_sl = a[:, k_begin * bk: k_end * bk]
     b_sl = b[k_begin * bk: k_end * bk]
+    if a.device.type == "meta":
+        return meta.gemm(a_sl, b_sl, acc, torch.float32)
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     _launch_gemm(a_sl, b_sl, acc, out)
     _build.LAUNCHES["gemm_partial"] += 1

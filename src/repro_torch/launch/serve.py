@@ -40,12 +40,13 @@ as the reference's does, so its first prefill raises a ``ValueError``;
 drive it through ``lm.prefill`` / ``lm.decode_step``.
 
 Parameters are random, from ``lm.init_params`` on a seeded generator; on
-the card the model computes in bf16 (``DEFAULT_RC``), on the CPU in fp32
+the card the model computes in bf16 (``SERVE_RC``), on the CPU in fp32
 (``CPU_RC``).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from collections import deque
 from typing import List, Optional
@@ -65,6 +66,13 @@ from repro_torch.serving import (PROCESS_KINDS, FrontDoor, build_workload,
                                  make_process, run_virtual_serving,
                                  slo_summary)
 
+#: the card's serving placement: bf16, and the decode cache written in
+#: place at ``pos`` (the reference's dynamic-update-slice) rather than by
+#: its one-hot select over the whole cache, which only a cache sharded on
+#: S needs (``runtime.sharding``); one card holds its cache whole, and
+#: both writes leave the same values
+SERVE_RC = dataclasses.replace(DEFAULT_RC, dus_cache_update=True)
+
 #: decode steps of the warm-up request each drive serves before its
 #: measured window (one prefill and this many decode steps)
 WARMUP_TOKENS = 2
@@ -74,7 +82,7 @@ def init_model(cfg, device=None):
     """(cfg, params, rc) with random parameters for ``cfg`` made on
     ``device`` from seed 0: bf16 compute on the card, fp32 on the CPU."""
     device = resolve_device(device)
-    rc = CPU_RC if device.type == "cpu" else DEFAULT_RC
+    rc = CPU_RC if device.type == "cpu" else SERVE_RC
     gen = torch.Generator(device=device).manual_seed(0)
     return cfg, lm.init_params(cfg, gen, rc, device=device), rc
 

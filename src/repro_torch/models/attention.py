@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.runtime.sharding import reshape
 from repro_torch.models.common import (apply_rope, checkpoint, rmsnorm,
                                        rope_cos_sin)
 
@@ -29,7 +30,7 @@ NEG_INF = -1e30
 
 
 def _split_heads(x, n_heads, dh):
-    return x.reshape(x.shape[:-1] + (n_heads, dh))
+    return reshape(x, x.shape[:-1] + (n_heads, dh))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
@@ -168,14 +169,24 @@ def decode_attention(q, k_cache, v_cache, pos: int):
                                 v_cache.transpose(1, 2), pos)
 
 
-def cache_update(cache, new, pos: int):
-    """Write ``new`` (B, Hkv, Dh) into cache (B, S, Hkv, Dh) at ``pos``.
+def cache_update(cache, new, pos: int, use_dus: bool = False):
+    """Write ``new`` (B, Hkv, Dh) into cache (B, S, Hkv, Dh) at ``pos``
+    (any trailing dims: MLA's (B, lora) into (B, S, lora)), in place;
+    returns ``cache``.
 
-    An in-place write of one position; it equals the reference's one-hot
-    select (and its DUS option), which returns a new cache with only
-    position ``pos`` replaced.  Returns ``cache``.
+    Default: the reference's one-hot select over the whole cache, which a
+    cache sharded on S takes shard by shard (each touches only its
+    S-slice) at the cost of a full cache read and write.  ``use_dus``
+    writes the one position (the reference's dynamic-update-slice).  Both
+    leave the same values.
     """
-    cache[:, pos] = new.to(cache.dtype)
+    new = new[:, None].to(cache.dtype)
+    if use_dus:
+        cache[:, pos:pos + 1] = new
+        return cache
+    hit = torch.arange(cache.shape[1], device=new.device) == pos
+    hit = hit.reshape((1, -1) + (1,) * (cache.dim() - 2))
+    cache.copy_(torch.where(hit, new, cache))
     return cache
 
 
@@ -222,10 +233,10 @@ def mla_prefill_qkv(x, p, cfg, positions):
                      m.qk_nope_dim + m.qk_rope_dim)
     qn, qr = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     qr = apply_rope(qr, cos, sin)
-    k_nope = torch.einsum("bsl,lhn->bshn", c, p["w_uk"].to(x.dtype).reshape(
-        m.kv_lora_rank, H, m.qk_nope_dim))
-    v = torch.einsum("bsl,lhv->bshv", c, p["w_uv"].to(x.dtype).reshape(
-        m.kv_lora_rank, H, m.v_head_dim))
+    k_nope = torch.einsum("bsl,lhn->bshn", c, reshape(
+        p["w_uk"].to(x.dtype), (m.kv_lora_rank, H, m.qk_nope_dim)))
+    v = torch.einsum("bsl,lhv->bshv", c, reshape(
+        p["w_uv"].to(x.dtype), (m.kv_lora_rank, H, m.v_head_dim)))
     q_full = torch.cat([qn, qr], dim=-1)
     k_full = torch.cat([k_nope, kr[:, :, None, :].expand(
         qn.shape[:-1] + (m.qk_rope_dim,))], dim=-1)
@@ -236,9 +247,9 @@ def mla_decode(x, p, cfg, c_cache, kr_cache, pos: int):
     """Weight-absorbed MLA decode over the compressed cache.
 
     x (B,D); c_cache (B,T,lora) and kr_cache (B,T,dr) are one layer's
-    cache, written in place at ``pos`` (the reference's one-hot select
-    returns new caches with only that position replaced).  Returns
-    out (B,D).  The scale is (dn + dr) ** -0.5, the decompressed key's.
+    cache, written in place at ``pos`` by the reference's one-hot
+    select.  Returns out (B,D).  The scale is (dn + dr) ** -0.5, the
+    decompressed key's.
     """
     m, H = cfg.mla, cfg.n_heads
     B = x.shape[0]
@@ -247,15 +258,15 @@ def mla_decode(x, p, cfg, c_cache, kr_cache, pos: int):
     c = rmsnorm(c, p["c_norm"])
     cos, sin = _mla_rope(cfg, torch.full((B, 1), pos, device=x.device))
     kr = apply_rope(kr[:, None, None, :], cos, sin)[:, 0, 0]
-    q = torch.matmul(x, p["w_q"].to(x.dtype)).reshape(
-        B, H, m.qk_nope_dim + m.qk_rope_dim)
+    q = reshape(torch.matmul(x, p["w_q"].to(x.dtype)),
+                (B, H, m.qk_nope_dim + m.qk_rope_dim))
     qn, qr = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     qr = apply_rope(qr[:, None], cos, sin)[:, 0]
     # absorb W_uk into q: scores_nope = (q_n W_uk^T) . c
-    w_uk = p["w_uk"].to(x.dtype).reshape(m.kv_lora_rank, H, m.qk_nope_dim)
+    w_uk = reshape(p["w_uk"].to(x.dtype), (m.kv_lora_rank, H, m.qk_nope_dim))
     q_abs = torch.einsum("bhn,lhn->bhl", qn, w_uk)
-    c_cache[:, pos] = c.to(c_cache.dtype)
-    kr_cache[:, pos] = kr.to(kr_cache.dtype)
+    cache_update(c_cache, c, pos)
+    cache_update(kr_cache, kr, pos)
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
     # fp32 products, as preferred_element_type=float32 asks
     s = (torch.einsum("bhl,bsl->bhs", q_abs.float(), c_cache.float())
@@ -265,7 +276,7 @@ def mla_decode(x, p, cfg, c_cache, kr_cache, pos: int):
     pr = torch.softmax(s, dim=-1)
     o_c = torch.einsum("bhs,bsl->bhl", pr.to(c_cache.dtype).float(),
                        c_cache.float())
-    w_uv = p["w_uv"].to(x.dtype).reshape(m.kv_lora_rank, H, m.v_head_dim)
+    w_uv = reshape(p["w_uv"].to(x.dtype), (m.kv_lora_rank, H, m.v_head_dim))
     o = torch.einsum("bhl,lhv->bhv", o_c.to(x.dtype), w_uv)
-    return torch.einsum("bhv,hvd->bd", o, p["w_o"].to(x.dtype).reshape(
-        H, m.v_head_dim, -1))
+    return torch.einsum("bhv,hvd->bd", o, reshape(
+        p["w_o"].to(x.dtype), (H, m.v_head_dim, -1)))

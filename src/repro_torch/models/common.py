@@ -13,22 +13,36 @@ from torch.utils import checkpoint as ckpt
 
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
-    """Numerics and memory knobs.  The reference's sharding and
-    cost-probe knobs have no counterpart in the eager single-card port.
+    """Numerics, memory and sharding knobs (the reference's fields and
+    defaults).
 
     ``remat_policy``: ``"none"``, ``"full"`` (a layer's backward
     recomputes its forward) or ``"dots"`` (it keeps the matrix products'
     outputs and recomputes the rest); ``remat_groups`` G > 1, when it
     divides the layer count L, also checkpoints each of G groups of L / G
-    layers.
+    layers.  ``sequence_parallel`` shards the residual stream's S over
+    'model' and ``logical_axes`` turns the sharding constraints on
+    (``runtime.sharding``; both act only inside ``axis_rules``).
+    ``cost_probe`` is kept so that configs carry over: the reference
+    unrolls its scans for exact HLO counts, and eager PyTorch has no scan
+    to unroll.  ``dus_cache_update`` writes the decode cache in place at
+    ``pos`` (the reference's dynamic-update-slice) instead of its one-hot
+    select over the whole cache; ``pad_attn_heads`` pads each KV group's
+    query heads so that the query heads are a multiple of it (exact: the
+    padded heads are dropped before the output projection).
     """
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     remat_policy: str = "none"          # none | full | dots
     remat_groups: int = 0               # >1: double remat over G groups
+    sequence_parallel: bool = False     # shard residual-stream S over 'model'
     flash_block_q: int = 512
     flash_block_kv: int = 512
     z_loss: float = 1e-4
+    logical_axes: bool = True           # emit sharding constraints
+    cost_probe: bool = False            # nothing to unroll in eager PyTorch
+    dus_cache_update: bool = False      # decode cache write in place
+    pad_attn_heads: int = 0             # pad Q heads to this multiple for TP
 
 
 DEFAULT_RC = RuntimeConfig()
@@ -169,8 +183,11 @@ def _nll_lse(logits, labels, valid):
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
-    return lse - ll, lse
+    # the label's logit keeps its trailing dim until the subtraction: a
+    # vocab-sharded DTensor's gather is a masked partial sum whose mask
+    # has the index's shape
+    ll = torch.gather(logits, -1, safe[..., None])
+    return (lse[..., None] - ll)[..., 0], lse
 
 
 def softmax_xent_sums(logits, labels, z_loss_coef: float = 1e-4):

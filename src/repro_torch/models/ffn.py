@@ -21,15 +21,27 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.runtime.sharding import reshape, shard_activation
+
 # (expert ids, top-k margin) of every moe_dispatch call while a
 # ``record_routes()`` block is open
 _ROUTES: Optional[List[dict]] = None
 
 
 def _glu(x, p, act):
+    if x.ndim == 3:
+        x = shard_activation(x, "ffn_in", None)
     h = torch.matmul(x, p["w1"].to(x.dtype))
     g = torch.matmul(x, p["w3"].to(x.dtype))
-    return torch.matmul(act(h) * g, p["w2"].to(x.dtype))
+    h = act(h) * g
+    if h.ndim == 3:
+        h = shard_activation(h, "ffn_hidden", None)
+    y = torch.matmul(h, p["w2"].to(x.dtype))
+    if y.ndim == 3:
+        # partial sums over 'model' reduce-scatter straight into the
+        # S-sharded residual layout (Megatron-SP exit boundary)
+        y = shard_activation(y, "residual", None)
+    return y
 
 
 def swiglu(x, p):
@@ -102,6 +114,7 @@ def moe_dispatch(x, p, cfg):
     C = moe_capacity(N, K, E, e.capacity_factor)
     dev = x.device
 
+    x = shard_activation(x, "moe_tokens", None)
     router_logits = torch.matmul(x, p["router"].to(x.dtype)).float()
     probs = torch.softmax(router_logits, dim=-1)
     gates, eidx = _top_k(probs, K)                                # (R, N, K)
@@ -112,8 +125,8 @@ def moe_dispatch(x, p, cfg):
     e_flat = eidx.reshape(R, N * K)
     order = torch.sort(e_flat, dim=-1, stable=True).indices      # by expert
     sorted_e = torch.gather(e_flat, 1, order)
-    hist = torch.zeros((R, E), dtype=torch.long, device=dev).scatter_add_(
-        1, e_flat, torch.ones_like(e_flat))
+    hist = torch.zeros_like(probs[:, 0], dtype=torch.long).scatter_add_(
+        1, e_flat, torch.ones_like(e_flat))                       # (R, E)
     starts = torch.cumsum(hist, dim=-1) - hist                   # exclusive
     ar = torch.arange(N * K, device=dev)
     pos_in_e = ar[None, :] - torch.gather(starts, 1, sorted_e)
@@ -126,24 +139,30 @@ def moe_dispatch(x, p, cfg):
     slot_c = torch.clamp(slot, 0, N * K - 1).reshape(R, E * C)
     src_tok = torch.gather(tok_sorted, 1, slot_c)                # (R, E*C)
     gates_flat = torch.gather(gates.reshape(R, N * K), 1, order)
-    slot_gate = torch.gather(gates_flat, 1, slot_c).reshape(R, E, C)
+    slot_gate = reshape(torch.gather(gates_flat, 1, slot_c), (R, E, C))
     slot_gate = (slot_gate * slot_valid).to(x.dtype)
 
     # ---- gather -> expert compute -> gather-based combine ----
-    x_e = _take(x, src_tok).reshape(R, E, C, D)
+    x_e = reshape(_take(x, src_tok), (R, E, C, D))
     x_e = x_e * slot_valid[..., None].to(x.dtype)
+    x_e = shard_activation(x_e, "moe_buf", None)                # EP layout
     h = torch.einsum("recd,edf->recf", x_e, p["w1"].to(x.dtype))
     g = torch.einsum("recd,edf->recf", x_e, p["w3"].to(x.dtype))
-    y_e = torch.einsum("recf,efd->recd", F.silu(h) * g, p["w2"].to(x.dtype))
+    h = shard_activation(h, "moe_buf", None)
+    y_e = torch.einsum("recf,efd->recd", (F.silu(h) * g).contiguous(),
+                       p["w2"].to(x.dtype))
     y_e = y_e * slot_gate[..., None]
 
     # invert the sort: position of every (token, choice) inside its expert
     inv = torch.empty_like(order).scatter_(1, order, ar.expand(R, -1))
-    slot_c2 = torch.gather(pos_in_e, 1, inv).reshape(R, N, K)
+    slot_c2 = reshape(torch.gather(pos_in_e, 1, inv), (R, N, K))
     valid_tok = slot_c2 < C
+    y_e = shard_activation(y_e, "moe_gathered", None)  # AG experts locally
     flat_idx = (eidx * C + torch.clamp(slot_c2, 0, C - 1)).reshape(R, N * K)
-    picked = _take(y_e.reshape(R, E * C, D), flat_idx).reshape(R, N, K, D)
+    picked = reshape(_take(y_e.reshape(R, E * C, D), flat_idx),
+                     (R, N, K, D))
     y = torch.sum(picked * valid_tok[..., None].to(x.dtype), dim=2)
+    y = shard_activation(y, "moe_tokens", None)
 
     if e.num_shared > 0:
         y = y + swiglu(x, p["shared"])

@@ -74,6 +74,8 @@ from repro_torch.models.common import (DEFAULT_RC, RuntimeConfig, apply_norm,
                                        remat_wrap, softmax_xent_sums)
 from repro_torch.pytree import tree_leaves
 from repro_torch.runtime.device import resolve_device
+from repro_torch.runtime.sharding import (cache_leaf, reshape,
+                                          shard_activation, whole_dim)
 
 Params = Dict[str, Any]
 
@@ -416,7 +418,7 @@ def embed_inputs(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
     prepended, S = P + the text tokens; ``audio`` from (B, S, K) codebook
     ids, their K embeddings summed."""
     _check_family(cfg)
-    emb = params["embed"]
+    emb = whole_dim(params["embed"], 0)
     tokens = torch.as_tensor(batch["tokens"], device=emb.device).long()
     if cfg.family == "audio":
         K = cfg.n_codebooks
@@ -426,13 +428,13 @@ def embed_inputs(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
         offs = torch.arange(K, device=emb.device) * cfg.vocab
         # summed in fp32 before the cast, as the reference sums its fp32
         # table's rows
-        h = emb[tokens + offs].float().sum(dim=2)
+        h = F.embedding(tokens + offs, emb).float().sum(dim=2)
     elif cfg.family == "vlm" and "vis_embeds" in batch:
-        te = emb[tokens]
+        te = F.embedding(tokens, emb)
         vis = torch.as_tensor(batch["vis_embeds"], device=emb.device)
         h = torch.cat([vis.to(te.dtype), te], dim=1)
     else:
-        h = emb[tokens]
+        h = F.embedding(tokens, emb)
     h = h.to(rc.compute_dtype)
     if cfg.family == "hybrid":            # gemma-style scaling
         # the scale is rounded to h's dtype first, as the reference's
@@ -447,8 +449,8 @@ def lm_logits(cfg: ArchConfig, params: Params, h, rc: RuntimeConfig):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.matmul(h, w.to(h.dtype))
     if cfg.family == "audio":
-        logits = logits.reshape(logits.shape[:-1]
-                                + (cfg.n_codebooks, cfg.vocab))
+        logits = reshape(logits, logits.shape[:-1]
+                         + (cfg.n_codebooks, cfg.vocab))
     return logits
 
 
@@ -456,11 +458,32 @@ def lm_logits(cfg: ArchConfig, params: Params, h, rc: RuntimeConfig):
 # Blocks
 # ===========================================================================
 
+def _pad_heads(q, n_kv: int, multiple: int):
+    """Pad each KV group of q (B,S,Hq,dh) with zero query heads until
+    the head count is a multiple of ``multiple`` (the GQA head -> KV
+    mapping is kept); returns (q, heads a group had, heads it has)."""
+    B, S, Hq, dh = q.shape
+    g = g_pad = Hq // n_kv
+    while (n_kv * g_pad) % multiple:
+        g_pad += 1
+    qg = F.pad(reshape(q, (B, S, n_kv, g, dh)), (0, 0, 0, g_pad - g))
+    return qg.reshape(B, S, n_kv * g_pad, dh), g, g_pad
+
+
 def _attn_full(cfg, rc, h, p, positions, *, window=None, train=False):
     """Returns (h, (k, v)); ``train`` runs the differentiable twins of
-    the reference's jnp attention instead of the flash kernel."""
+    the reference's jnp attention instead of the flash kernel.  With
+    ``rc.pad_attn_heads`` the query heads are padded per KV group to a
+    multiple of it and the padded heads dropped again before the output
+    projection (exact)."""
     x = apply_norm(cfg.norm, h, p["ln"])
     q, k, v = attn_lib.gqa_project_qkv(x, p, cfg, positions)
+    g = g_pad = 0
+    if rc.pad_attn_heads > 1 and q.shape[2] % rc.pad_attn_heads != 0:
+        q, g, g_pad = _pad_heads(q, cfg.n_kv_heads, rc.pad_attn_heads)
+    q = shard_activation(q, "attn_in", rc)
+    k = shard_activation(k, "attn_in", rc)
+    v = shard_activation(v, "attn_in", rc)
     if window is not None:
         local = attn_lib.blocked_local_attention if train \
             else attn_lib.local_attention
@@ -470,8 +493,13 @@ def _attn_full(cfg, rc, h, p, positions, *, window=None, train=False):
              else attn_lib.flash_attention)(
             q, k, v, causal=True, block_q=rc.flash_block_q,
             block_kv=rc.flash_block_kv)
+    if g_pad != g:                          # drop padded heads (exact)
+        B, S = o.shape[:2]
+        o = reshape(o, (B, S, cfg.n_kv_heads, g_pad, -1))[:, :, :, :g]
     o = o.reshape(o.shape[:2] + (-1,))
-    return h + torch.matmul(o, p["wo"].to(o.dtype)), (k, v)
+    o = shard_activation(o, "attn_out", rc)
+    delta = torch.matmul(o, p["wo"].to(o.dtype))
+    return h + shard_activation(delta, "residual", rc), (k, v)
 
 
 def _mla_full(cfg, rc, h, p, positions, *, train=False):
@@ -481,11 +509,15 @@ def _mla_full(cfg, rc, h, p, positions, *, train=False):
     entries."""
     x = apply_norm(cfg.norm, h, p["ln"])
     q, k, v, c, kr = attn_lib.mla_prefill_qkv(x, p, cfg, positions)
+    q = shard_activation(q, "attn_in", rc)
+    k = shard_activation(k, "attn_in", rc)
+    v = shard_activation(v, "attn_in", rc)
     o = (attn_lib.blocked_attention if train else attn_lib.flash_attention)(
         q, k, v, causal=True, block_q=rc.flash_block_q,
         block_kv=rc.flash_block_kv)
-    w_o = p["w_o"].to(o.dtype).reshape(cfg.n_heads, cfg.mla.v_head_dim, -1)
-    return h + torch.einsum("bshv,hvd->bsd", o, w_o), (c, kr)
+    w_o = reshape(p["w_o"].to(o.dtype), (cfg.n_heads, cfg.mla.v_head_dim, -1))
+    o = torch.einsum("bshv,hvd->bsd", o, w_o)
+    return h + shard_activation(o, "residual", rc), (c, kr)
 
 
 def _mlp_full(cfg, rc, h, p, act=ffn_lib.swiglu):
@@ -498,7 +530,8 @@ MOE_METRIC_KEYS = ("moe_aux", "moe_z", "moe_dropped")
 def _moe_full(cfg, rc, h, p, aux):
     """Returns (h, aux) with the layer's MoE metrics added to ``aux``."""
     y, metrics = ffn_lib.moe_apply(apply_norm(cfg.norm, h, p["ln"]), p, cfg)
-    return h + y, {k: aux[k] + metrics[k] for k in MOE_METRIC_KEYS}
+    return h + shard_activation(y, "residual", rc), \
+        {k: aux[k] + metrics[k] for k in MOE_METRIC_KEYS}
 
 
 def _moe_nometrics(cfg, h, p):
@@ -525,7 +558,7 @@ def _rglru_full(cfg, rc, h, p, *, train=False):
     scan = rec_lib.rglru_assoc_scan if train else rec_lib.rglru_scan
     rec, h_last = scan(xb, p, cfg.n_heads)
     out = torch.matmul(rec * y, p["w_out"].to(x.dtype))
-    return h + out, (h_last, conv_state)
+    return h + shard_activation(out, "residual", rc), (h_last, conv_state)
 
 
 def _mlstm_qkv(cfg, p, x, conv=None):
@@ -542,16 +575,16 @@ def _mlstm_qkv(cfg, p, x, conv=None):
     log_i, f_pre = torch.chunk(gates.float(), 2, dim=-1)
 
     def heads(t):
-        return t.reshape(t.shape[0], t.shape[1], cfg.n_heads, -1)
+        return reshape(t, (t.shape[0], t.shape[1], cfg.n_heads, -1))
     return heads(q), heads(k), heads(u), log_i, F.logsigmoid(f_pre), z, \
         conv_state
 
 
 def _mlstm_out(cfg, h, p, hh, z):
-    """h + the down-projection of the heads' outputs hh (..., H, dh),
+    """The down-projection of the heads' outputs hh (..., H, dh),
     group-normed per head and gated by silu(z)."""
     hh = rec_lib.groupnorm_heads(hh.reshape(z.shape), p["gn"], cfg.n_heads)
-    return h + torch.matmul(hh * F.silu(z), p["w_down"].to(h.dtype))
+    return torch.matmul(hh * F.silu(z), p["w_down"].to(h.dtype))
 
 
 def _mlstm_full(cfg, rc, h, p, *, make_cache=True):
@@ -570,7 +603,9 @@ def _mlstm_full(cfg, rc, h, p, *, make_cache=True):
         hh = rec_lib.mlstm_parallel(q, k, v, log_i, log_f)
         state = rec_lib.mlstm_final_state(q, k, v, log_i, log_f) \
             if make_cache else None
-    return _mlstm_out(cfg, h, p, hh.transpose(1, 2), z), (state, conv_state)
+    out = shard_activation(_mlstm_out(cfg, h, p, hh.transpose(1, 2), z),
+                           "residual", rc)
+    return h + out, (state, conv_state)
 
 
 def _mlstm_decode(cfg, rc, h, p, C, n, m, conv):
@@ -582,7 +617,7 @@ def _mlstm_decode(cfg, rc, h, p, C, n, m, conv):
                                  log_f[:, 0], (C, n, m))
     for t, t_new in zip((C, n, m, conv), new + (conv_state,)):
         t.copy_(t_new)
-    return _mlstm_out(cfg, h, p, hh[:, None], z)
+    return h + _mlstm_out(cfg, h, p, hh[:, None], z)
 
 
 def _slstm_full(cfg, rc, h, p, state=None):
@@ -622,8 +657,8 @@ def _attn_decode(cfg, rc, h, p, ck, cv, pos, positions, window=None):
         slot, pos_eff = pos % W, min(pos, W - 1)
     else:
         slot = pos_eff = pos
-    attn_lib.cache_update(ck, k[:, 0], slot)
-    attn_lib.cache_update(cv, v[:, 0], slot)
+    attn_lib.cache_update(ck, k[:, 0], slot, use_dus=rc.dus_cache_update)
+    attn_lib.cache_update(cv, v[:, 0], slot, use_dus=rc.dus_cache_update)
     o = attn_lib.decode_attention(q[:, 0], ck, cv, pos_eff)
     o = o.reshape(o.shape[0], 1, -1)
     return h + torch.matmul(o, p["wo"].to(o.dtype))
@@ -655,7 +690,13 @@ def _run_layers(rc, carry, blocks, body):
     count, each group of L / G layers also under a full checkpoint (the
     reference's double remat)."""
     L = tree_leaves(blocks)[0].shape[0]
-    layer = remat_wrap(body, rc)
+
+    def constrained(c, p):
+        c = body(c, p)
+        if isinstance(c, tuple):
+            return (shard_activation(c[0], "residual", rc),) + c[1:]
+        return shard_activation(c, "residual", rc)
+    layer = remat_wrap(constrained, rc)
 
     def run(c, lo, hi):
         for i in range(lo, hi):
@@ -680,6 +721,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
     h = embed_inputs(cfg, params, batch, rc)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
+    h = shard_activation(h, "residual", rc)
     metrics: Dict[str, Any] = {}
     fam, blocks = cfg.family, params["blocks"]
     geglu = ffn_lib.geglu
@@ -732,7 +774,8 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
 
     if return_hidden:
         return h, metrics
-    return lm_logits(cfg, params, h, rc), metrics
+    logits = shard_activation(lm_logits(cfg, params, h, rc), "logits", rc)
+    return logits, metrics
 
 
 LOSS_CHUNK = 512
@@ -754,8 +797,9 @@ def chunked_xent(cfg: ArchConfig, params: Params, h, labels,
     def body(hc, lc):
         logits = torch.matmul(hc, w.to(hc.dtype))
         if cfg.family == "audio":
-            logits = logits.reshape(logits.shape[:-1]
-                                    + (cfg.n_codebooks, cfg.vocab))
+            logits = reshape(logits, logits.shape[:-1]
+                             + (cfg.n_codebooks, cfg.vocab))
+        logits = shard_activation(logits, "logits", rc)
         return softmax_xent_sums(logits, lc, z_loss_coef=rc.z_loss)
 
     tot = nll = n = torch.zeros((), device=h.device)
@@ -794,14 +838,17 @@ def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
 # ===========================================================================
 
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
-               rc: RuntimeConfig = DEFAULT_RC, device=None) -> Dict[str, Any]:
-    """Zero-initialised decode cache."""
+               rc: RuntimeConfig = DEFAULT_RC, device=None,
+               make=None) -> Dict[str, Any]:
+    """Zero-initialised decode cache (on a meta device: its shapes).
+    ``make(path, shape, dtype, fill)``, where given, makes each leaf (a
+    sharded prefill's, ``runtime.sharding.cache_leaf``)."""
     _check_family(cfg)
-    device = resolve_device(device)
+    device = _device(device)
     B, dt = batch_size, rc.compute_dtype
 
-    def z(*shape, dtype=dt):
-        return torch.zeros(shape, dtype=dtype, device=device)
+    def z(*shape, dtype=dt, fill=0.0):
+        return (shape, dtype, fill)
 
     kv = (cfg.n_kv_heads, cfg.dh)
     if cfg.family in _DENSE:
@@ -821,11 +868,11 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
         dh, f32 = inner // H, torch.float32
         cache = {"mC": z(G, n_m, B, H, dh, dh, dtype=f32),
                  "mn": z(G, n_m, B, H, dh, dtype=f32),
-                 "mm": z(G, n_m, B, H, dtype=f32).fill_(-1e30),
+                 "mm": z(G, n_m, B, H, dtype=f32, fill=-1e30),
                  "mconv": z(G, n_m, B, 3, inner),
                  "sc": z(G, B, D, dtype=f32), "sn": z(G, B, D, dtype=f32),
                  "sh": z(G, B, D, dtype=f32),
-                 "sm": z(G, B, D, dtype=f32).fill_(-10.0)}
+                 "sm": z(G, B, D, dtype=f32, fill=-10.0)}
     else:
         G, tail = _hybrid_group_counts(cfg)
         r = cfg.rglru
@@ -843,8 +890,33 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
                 "rh": z(tail, B, r.d_rnn, dtype=torch.float32),
                 "rconv": z(tail, B, r.conv_width - 1, r.d_rnn),
             }
+
+    def build(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: build(v, path + (k,)) for k, v in tree.items()}
+        shape, dtype, fill = tree
+        if make is not None:
+            return make(path, shape, dtype, fill)
+        return torch.full(shape, fill, dtype=dtype, device=device)
+    cache = build(cache)
     cache["pos"] = 0
     return cache
+
+
+def _put(leaf, i: int, t) -> None:
+    """Write layer ``i``'s prompt entries ``t`` (B, S, ...) into ``leaf``
+    (L, B, T, ...), zero past S.  The whole layer is written: a slice of
+    a cache sharded on T would write each shard's own slice."""
+    pad = leaf.shape[2] - t.shape[1]
+    if pad:
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+    leaf[i] = t
+
+
+def _prefill_cache(cfg, B: int, T: int, rc: RuntimeConfig, h):
+    """The cache a prefill of activations ``h`` fills: zeros on h's
+    device, each rank making its shards alone when h is sharded."""
+    return init_cache(cfg, B, T, rc, h.device, make=cache_leaf(h))
 
 
 @torch.no_grad()
@@ -862,39 +934,43 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
     h = embed_inputs(cfg, params, batch, rc)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
+    h = shard_activation(h, "residual", rc)
     blocks = params["blocks"]
     T = max_len if (max_len is not None and max_len > S) else S
     if cfg.family in _DENSE:
-        cache = init_cache(cfg, B, T, rc, h.device)
+        cache = _prefill_cache(cfg, B, T, rc, h)
         for i in range(cfg.n_layers):
             p = _layer(blocks, i)
             h, (k, v) = _attn_full(cfg, rc, h, p["attn"], positions)
-            cache["ck"][i, :, :S] = k
-            cache["cv"][i, :, :S] = v
-            h = _mlp_full(cfg, rc, h, p["mlp"])
+            _put(cache["ck"], i, k)
+            _put(cache["cv"], i, v)
+            h = shard_activation(_mlp_full(cfg, rc, h, p["mlp"]),
+                                 "residual", rc)
     elif cfg.family == "moe":
-        cache = init_cache(cfg, B, T, rc, h.device)
+        cache = _prefill_cache(cfg, B, T, rc, h)
         for i in range(_moe_groups(cfg)):
             p = _layer(blocks, i)
             h, (k, v) = _attn_full(cfg, rc, h, p["attn_a"], positions)
-            cache["cka"][i, :, :S] = k
-            cache["cva"][i, :, :S] = v
+            _put(cache["cka"], i, k)
+            _put(cache["cva"], i, v)
             h = _mlp_full(cfg, rc, h, p["mlp"])
             h, (k, v) = _attn_full(cfg, rc, h, p["attn_b"], positions)
-            cache["ckb"][i, :, :S] = k
-            cache["cvb"][i, :, :S] = v
-            h = _moe_nometrics(cfg, h, p["moe"])
+            _put(cache["ckb"], i, k)
+            _put(cache["cvb"], i, v)
+            h = shard_activation(_moe_nometrics(cfg, h, p["moe"]),
+                                 "residual", rc)
     elif cfg.family == "mla_moe":
-        cache = init_cache(cfg, B, T, rc, h.device)
+        cache = _prefill_cache(cfg, B, T, rc, h)
         for i in range(cfg.n_layers):
             p = _layer(blocks, i)
             h, (c, kr) = _mla_full(cfg, rc, h, p["attn"], positions)
-            cache["cc"][i, :, :S] = c
-            cache["ckr"][i, :, :S] = kr
-            h = _moe_nometrics(cfg, h, p["moe"])
+            _put(cache["cc"], i, c)
+            _put(cache["ckr"], i, kr)
+            h = shard_activation(_moe_nometrics(cfg, h, p["moe"]),
+                                 "residual", rc)
     elif cfg.family == "xlstm":
         G, n_m = _xlstm_groups(cfg)
-        cache = init_cache(cfg, B, S, rc, h.device)
+        cache = _prefill_cache(cfg, B, S, rc, h)
         for i in range(G):
             p = _layer(blocks, i)
             for j in range(n_m):
@@ -908,7 +984,7 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
     else:
         G, n_tail = _hybrid_group_counts(cfg)
         W = cfg.rglru.window
-        cache = init_cache(cfg, B, W, rc, h.device)
+        cache = _prefill_cache(cfg, B, W, rc, h)
         geglu = ffn_lib.geglu
         for i in range(G):
             p = _layer(blocks, i)
@@ -922,7 +998,8 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
                                    window=W)
             cache["wk"][i] = _window_cache(k, W)
             cache["wv"][i] = _window_cache(v, W)
-            h = _mlp_full(cfg, rc, h, p["mlp2"], geglu)
+            h = shard_activation(_mlp_full(cfg, rc, h, p["mlp2"], geglu),
+                                 "residual", rc)
         tc = cache.get("tail")
         for i in range(n_tail):
             p = _layer(params["tail"], i)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.runtime.sharding import reshape
 
 SQRT_EPS = 1e-8
 RGLRU_C = 8.0
@@ -40,7 +41,7 @@ def block_diag_linear(x, w, b=None):
 def _rglru_coeffs(x, p, n_heads):
     """x (B,S,d_rnn) -> a (gate-modulated decay), b (gated input), fp32."""
     B, S, d = x.shape
-    xh = x.reshape(B, S, n_heads, d // n_heads)
+    xh = reshape(x, (B, S, n_heads, d // n_heads))
     r = torch.sigmoid(block_diag_linear(xh, p["w_a"], p["b_a"])
                       .reshape(B, S, d).float())
     i = torch.sigmoid(block_diag_linear(xh, p["w_x"], p["b_x"])
@@ -254,7 +255,7 @@ def groupnorm_heads(x, scale, n_heads, eps: float = 1e-5):
     """Per-head LayerNorm (GroupNorm with groups = heads). x (..., inner)."""
     shp = x.shape
     dh = shp[-1] // n_heads
-    xh = x.reshape(shp[:-1] + (n_heads, dh)).float()
+    xh = reshape(x, shp[:-1] + (n_heads, dh)).float()
     mu = torch.mean(xh, dim=-1, keepdim=True)
     var = torch.var(xh, dim=-1, keepdim=True, unbiased=False)  # jnp.var
     y = (xh - mu) * torch.rsqrt(var + eps)
@@ -284,7 +285,7 @@ def slstm_seq(x, p, n_heads, state=None):
     for t in range(S):
         # the per-head product laid out head-major, (B, H*4*dh), before
         # the split into z, i, f, o: the reference's layout, kept as is
-        pre_h = torch.einsum("bhi,hij->bhj", h.reshape(B, n_heads, dh),
+        pre_h = torch.einsum("bhi,hij->bhj", reshape(h, (B, n_heads, dh)),
                              r).reshape(B, 4 * D)
         z_p, i_p, f_p, o_p = torch.split(pre_x[:, t] + pre_h, D, dim=-1)
         z = torch.tanh(z_p)

@@ -19,6 +19,7 @@ from repro_torch.models.common import DEFAULT_RC, RuntimeConfig
 from repro_torch.optim import OptConfig, adamw_update, init_opt_state
 from repro_torch.pytree import tree_items, tree_leaves, tree_map, \
     tree_unflatten
+from repro_torch.runtime.sharding import reshape
 
 
 def _on(batch, device):
@@ -67,7 +68,8 @@ def make_train_step(cfg: ArchConfig, rc: RuntimeConfig = DEFAULT_RC,
                                                    device=p.device), params)
             loss = 0.0
             for i in range(k):
-                mb = {key: a.reshape((k, a.shape[0] // k) + a.shape[1:])[i]
+                mb = {key: reshape(a, (k, a.shape[0] // k)
+                                   + tuple(a.shape[1:]))[i]
                       for key, a in batch.items()}
                 (mb_loss, metrics), g = grad_fn(params, mb)
                 grads = tree_map(lambda acc, x: acc + x.to(accum_dtype),

@@ -243,12 +243,18 @@ def test_jit_points_run_on_the_card_unless_the_cpu_is_named(monkeypatch,
         s = Sweep(name="card", policies=(Policy.mesc(),), n_sets=1,
                   duration=1e6, engine=engine)
         assert len(Campaign(s, cache_dir=tmp_path, workers=1).collect()) == 1
-    # the split of the point axis across GPUs is not ported
-    sharded = Sweep(name="card", policies=(Policy.mesc(),), n_sets=1,
+    # a sharded jit campaign runs on the named device, with the
+    # unsharded campaign's rows and keys
+    sharded = Sweep(name="card", policies=(Policy.mesc(),), n_sets=3,
                     duration=1e6, engine="jit", devices=2)
-    with pytest.raises(ValueError, match="devices=2"):
-        Campaign(sharded, cache_dir=tmp_path / "s", workers=1,
-                 device="cpu").collect()
+    plain = Sweep(name="card", policies=(Policy.mesc(),), n_sets=3,
+                  duration=1e6, engine="jit")
+    assert [p.key() for p in sharded.points()] \
+        == [p.key() for p in plain.points()]
+    assert Campaign(sharded, cache_dir=tmp_path / "s", workers=1,
+                    device="cpu").collect() \
+        == Campaign(plain, cache_dir=tmp_path / "p", workers=1,
+                    device="cpu").collect()
 
 
 def test_row_helpers_equal_the_reference(tmp_path):

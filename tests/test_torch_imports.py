@@ -72,8 +72,37 @@ def test_every_port_module_is_found():
                  "repro_torch.optim.compression",
                  "repro_torch.checkpointing",
                  "repro_torch.checkpointing.checkpoint",
-                 "repro_torch.runtime.trainer", "repro_torch.launch.train"):
+                 "repro_torch.runtime.trainer", "repro_torch.launch.train",
+                 "repro_torch._compat",
+                 "repro_torch._compat.hypothesis_fallback",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+                 "repro_torch.launch.perf", "repro_torch.launch.specs",
+                 "repro_torch.runtime.hlo_analysis",
+                 "repro_torch.runtime.sharding",
+                 "repro_torch.kernels.meta"):
         assert want in mods
+
+
+def test_every_reference_module_has_a_twin():
+    """Every module of the JAX package has a counterpart in the port."""
+    ref = ROOT / "src" / "repro"
+    want = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.py"))
+    missing = [m for m in want if not (PORT / m).exists()]
+    assert missing == []
+
+
+def test_importing_the_port_builds_no_mesh_and_no_process_group():
+    code = (
+        "import importlib, torch.distributed as dist\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+        "import repro_torch.runtime.sharding as sh\n"
+        "print(dist.is_initialized(), sh.current_rules())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "False None"
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():

@@ -12,6 +12,7 @@ import chip_smoke
 from repro_torch.core import simulator_jit as sj
 from repro_torch.core.scheduler import Policy
 from repro_torch.core.simulator_vec import simulate_vbatch
+from repro_torch.runtime.device_config import MAX_LOGICAL_DEVICES
 
 LIB = chip_smoke.sim_library()
 _CASES = {}
@@ -95,7 +96,7 @@ class TestOverflowRetryLadder:
         calls = []
 
         def run_once(b, policy, seeds, duration, op, cf, nominal, K,
-                     scenario=None, device=None):
+                     scenario=None, device=None, devices=1):
             calls.append((list(seeds), K))
             return {"overflow": np.array([K <= sj._K0 and s % 2 == 1
                                           for s in seeds]),
@@ -116,7 +117,7 @@ class TestOverflowRetryLadder:
         monkeypatch.setattr(
             sj, "_run_once",
             lambda b, policy, seeds, duration, op, cf, nominal, K,
-            scenario=None, device=None:
+            scenario=None, device=None, devices=1:
             {"overflow": np.ones(b.P, bool), "seeds": list(seeds)})
         monkeypatch.setattr(
             sj, "_assemble", lambda b, final, duration: [None] * b.P)
@@ -175,9 +176,10 @@ def test_entry_points_run_on_the_card_or_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         simulate_vbatch(ts, LIB, Policy.mesc(), seeds=sd, duration=1e5,
                         select_backend="jit")
-    with pytest.raises(ValueError, match="6.3"):
-        sj.simulate_jbatch(ts, LIB, Policy.mesc(), seeds=sd, duration=1e5,
-                           devices=2, device="cpu")
+    for bad in (0, MAX_LOGICAL_DEVICES + 1):
+        with pytest.raises(ValueError, match="out of range"):
+            sj.simulate_jbatch(ts, LIB, Policy.mesc(), seeds=sd,
+                               duration=1e5, devices=bad, device="cpu")
     # the host backend, the default, runs without the card
     host = simulate_vbatch(ts, LIB, Policy.mesc(), seeds=sd, duration=1e5)
     assert len(host) == len(ts)

@@ -257,3 +257,41 @@ def test_dense_variants_prefill_then_four_decode_steps(arch):
         assert torch.argmax(tlog, dim=-1).tolist() == tok.tolist()
     _close(tcache["ck"], jcache["ck"])
     _close(tcache["cv"], jcache["cv"])
+
+
+@pytest.mark.parametrize("arch,dus", [("tinyllama-1.1b-smoke", True),
+                                      ("tinyllama-1.1b-smoke", False),
+                                      ("recurrentgemma-2b-smoke", True)])
+def test_sharding_knobs_change_no_logit(arch, dus):
+    """``pad_attn_heads`` (4 query heads padded per KV group to a multiple
+    of 3), the decode cache write (in place or the one-hot select) and
+    ``logical_axes`` outside ``axis_rules``: prefill and four decode steps
+    equal the port without them and the JAX package with them."""
+    jc, tc = j_get_config(arch), get_config(arch)
+    jp = j_lm.init_params(jc, jax.random.PRNGKey(2), j_common.CPU_RC)
+    tp = lm.params_from_jax(tc, jax.tree_util.tree_map(np.asarray, jp),
+                            common.CPU_RC, device="cpu")
+    knobs = dict(pad_attn_heads=3, dus_cache_update=dus, logical_axes=True)
+    jrc = dataclasses.replace(j_common.CPU_RC, **knobs)
+    trc = dataclasses.replace(common.CPU_RC, **knobs)
+    prompt = np.random.default_rng(5).integers(0, tc.vocab, (2, 8),
+                                               dtype=np.int32)
+    jlog, jcache = j_lm.prefill(jc, jp, {"tokens": jnp.asarray(prompt)}, jrc,
+                                max_len=16)
+    tlog, tcache = lm.prefill(tc, tp, {"tokens": torch.from_numpy(prompt)},
+                              trc, max_len=16)
+    plog, pcache = lm.prefill(tc, tp, {"tokens": torch.from_numpy(prompt)},
+                              common.CPU_RC, max_len=16)
+    _close(tlog, jlog)
+    _close(tlog, plog.numpy())
+    jdec = jax.jit(lambda p, t, c: j_lm.decode_step(jc, p, t, c, jrc))
+    tok = prompt[:, -1].copy()
+    for _ in range(4):
+        jlog, jcache = jdec(jp, jnp.asarray(tok), jcache)
+        tlog, tcache = lm.decode_step(tc, tp, torch.from_numpy(tok), tcache,
+                                      trc)
+        plog, pcache = lm.decode_step(tc, tp, torch.from_numpy(tok), pcache,
+                                      common.CPU_RC)
+        _close(tlog, jlog)
+        _close(tlog, plog.numpy())
+        tok = np.array(jnp.argmax(jlog, axis=-1), np.int32)

@@ -218,9 +218,10 @@ def test_one_step_with_tied_candidates_equals_the_reference():
     tb = sj._tables(b, sd)
     sc = {"t_sr": 5000.0, "overrun_prob": 0.3, "cf": 2.0,
           "duration": 4e6, "max_steps": 3}
-    runner = sj._runner_for(Policy.mesc(), False, None, tb, carry,
-                            torch.device("cpu"), 1)
-    got = runner.run(tb, sc, {k: v.copy() for k, v in carry.items()})
+    runner = sj._runners_for(Policy.mesc(), False, None, tb, carry,
+                             torch.device("cpu"), 1)[0]
+    got = sj._run_shards([runner], [(tb, sc, {k: v.copy()
+                                              for k, v in carry.items()})])[0]
     run = j_sj._compiled_run(True, False, "instruction", False, True)
     with jax.experimental.enable_x64():
         import jax.numpy as jnp
