@@ -149,7 +149,14 @@ and then, failing on the first phase that goes wrong:
    caches and 22 kernel launches, then the port's dry run of the cell on
    a 1-rank mesh: its argument bytes equal the real tensors', its peak
    within 0.8-1.25 of the card's ``max_memory_allocated``; one
-   ``{"sharded_cell": ...}`` line each.
+   ``{"sharded_cell": ...}`` line each; (d) one train step of full-width
+   tinyllama-1.1b at train_4k's 4096 tokens a sequence (global batch 2;
+   the dry run's train RuntimeConfig, optimizer and 2d mode,
+   sequence-parallel) plainly, then on DTensors under ``axis_rules`` on
+   the 1-rank mesh, from the same parameters, optimizer state and batch:
+   the loss, every updated leaf and moment bit-equal, no kernel launched
+   by either; one ``{"sharded_train": ...}`` line with both steps'
+   seconds and peak card memory.
 
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.  Everything printed is also written to
@@ -750,11 +757,16 @@ def phase_attention_edges(dev, gen):
     kc = randn((1, 2048, 1, 256), gen, bf).transpose(1, 2)
     decode_attention_tpu(q, kc, kc, 535)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        decode_attention_tpu(q, kc, kc, 535)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the process's first profiler session has come back from an H100
+    # without a single device event: that is no count, so profile again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            decode_attention_tpu(q, kc, kc, 535)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
     log(f"  one decode call launched {len(names)} kernel(s): {names}")
     assert len(names) == 1 and "decode_kernel" in names[0], names
 
@@ -2536,6 +2548,8 @@ DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"),
                 ("qwen1.5-110b", "decode_32k"))
 SHARDED_ARCH = "tinyllama-1.1b"
 SHARDED_CELLS = (("prefill_32k", 2), ("decode_32k", 16))
+# (d): train_4k's 4096 tokens a sequence, its global batch cut from 256
+SHARDED_TRAIN_BATCH = 2
 PEAK_RATIO = (0.8, 1.25)
 
 
@@ -2742,16 +2756,120 @@ def phase_sharded_cell(dev, kind_name: str, batch: int) -> dict:
     return out
 
 
+def phase_sharded_train(dev) -> dict:
+    """(d) One train step of full-width ``SHARDED_ARCH`` (train_4k's
+    ``dryrun.cell_rc``: bf16 compute on fp32 master weights, remat
+    "full", sequence-parallel; its optimizer and 2d mode) plainly, then
+    on DTensors under ``axis_rules`` on a 1-rank (1, 1) CUDA mesh, from
+    the same parameters, optimizer state and batch: the loss, every
+    updated leaf and every moment bit-equal, and no kernel launched (the
+    training forward runs the kernels' differentiable twins)."""
+    import gc
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import SHAPES_BY_NAME, get_config
+    from repro_torch.data import batch_for_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.pytree import tree_items
+    from repro_torch.runtime import sharding as sh
+    from repro_torch.runtime.trainer import init_train_state, \
+        make_train_step
+
+    cfg = get_config(SHARDED_ARCH)
+    full = SHAPES_BY_NAME["train_4k"]
+    shape = dataclasses.replace(full, global_batch=SHARDED_TRAIN_BATCH)
+    rc = dryrun.cell_rc(SHARDED_ARCH, "train")
+    opt_cfg = dryrun.cell_opt(SHARDED_ARCH)
+    mode = dryrun.cell_mode(SHARDED_ARCH, shape.name)
+    log(f"phase 11 (d): {cfg.name} full width, one train step of "
+        f"{shape.global_batch} x {shape.seq_len} tokens, plain and on a "
+        f"1-rank mesh ({mode} mode, sequence-parallel)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, opt = init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), rc, opt_cfg,
+        device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_for_arch(
+        cfg, shape.seq_len, shape.global_batch, 0).items()}
+    step = make_train_step(cfg, rc, opt_cfg,
+                           microbatches=dryrun.cell_microbatches(
+                               SHARDED_ARCH, "train"))
+
+    def timed(*args):
+        _build.reset_launches()
+        _sync(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = step(*args)
+        _sync(dev)
+        sec = time.perf_counter() - t0
+        launches = sum(_build.LAUNCHES.values())
+        assert launches == 0, dict(_build.LAUNCHES)
+        return out, sec, torch.cuda.max_memory_allocated(dev) - base
+
+    (want_p, want_o, want_m), plain_s, plain_peak = timed(params, opt, batch)
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        port = s_.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rules = sh.AxisRules(mesh, sequence_parallel=True, mode=mode)
+        p_spec = sh.param_specs(params, rules)
+        o_spec = {k: p_spec if k in ("m", "v") else sh.replicated(v, rules)
+                  for k, v in opt.items()}
+        args = (sh.distribute(params, p_spec, mesh),
+                sh.distribute(opt, o_spec, mesh),
+                sh.distribute(batch, sh.batch_specs(batch, rules), mesh))
+        with sh.axis_rules(rules), implicit_replication():
+            (got_p, got_o, got_m), sharded_s, sharded_peak = timed(*args)
+        assert torch.equal(got_m["loss"].to_local(), want_m["loss"]), \
+            (float(got_m["loss"].to_local()), float(want_m["loss"]))
+        got = dict(tree_items({"params": got_p, "opt": got_o}))
+        leaves = 0
+        for path, w in tree_items({"params": want_p, "opt": want_o}):
+            g = got[path]
+            g = g.to_local() if hasattr(g, "to_local") else g
+            assert torch.equal(g, w), (path, max_err(g, w))
+            leaves += 1
+    finally:
+        dist.destroy_process_group()
+    out = {"arch": SHARDED_ARCH, "shape": shape.name,
+           "global_batch": shape.global_batch, "seq_len": shape.seq_len,
+           "reduced": {"global_batch": [full.global_batch,
+                                        shape.global_batch]},
+           "mode": mode, "loss": float(want_m["loss"]),
+           "plain_s": plain_s, "sharded_s": sharded_s,
+           "plain_peak_bytes": plain_peak,
+           "sharded_peak_bytes": sharded_peak, "launches": 0,
+           "leaves_compared": leaves, "bit_equal": True}
+    log(json.dumps({"sharded_train": out}))
+    del params, opt, batch, want_p, want_o, got_p, got_o, args, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_sharding(dev) -> dict:
     """Phase 11: (a) ``phase_devices``, (b) ``phase_dryrun_cells``, (c)
-    ``phase_sharded_cell`` for each of ``SHARDED_CELLS``."""
+    ``phase_sharded_cell`` for each of ``SHARDED_CELLS``, (d)
+    ``phase_sharded_train``."""
     log("phase 11: the lockstep engine's devices > 1, the dry run, and "
         "sharded steps against their dry run")
     t0 = time.perf_counter()
     out = {"devices": phase_devices(dev),
            "dryrun": phase_dryrun_cells(),
            "cells": [phase_sharded_cell(dev, k, b)
-                     for k, b in SHARDED_CELLS]}
+                     for k, b in SHARDED_CELLS],
+           "train": phase_sharded_train(dev)}
     out["wall_s"] = time.perf_counter() - t0
     log(f"  phase 11: {out['wall_s']:.1f} s on {os.cpu_count()} host "
         f"CPUs")

@@ -20,8 +20,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
+from repro_torch.runtime import sharding
 from repro_torch.runtime.sharding import reshape
 from repro_torch.models.common import (apply_rope, checkpoint, rmsnorm,
                                        rope_cos_sin)
@@ -69,6 +71,19 @@ def local_attention(q, k, v, *, window: int, q_offset=0, block_q: int = 512):
     return o.transpose(1, 2)
 
 
+def _on_local_shards(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` on each rank's local shards of the DTensors
+    q, k, v (B, S, H, d), placed as the flash kernel's are
+    (``sharding.attention_local``): the blocked loops run collective-free
+    and without DTensor's dispatch per operation."""
+    def local(ql, kl, vl):
+        return fn(ql.transpose(1, 2), kl.transpose(1, 2),
+                  vl.transpose(1, 2), **kw).transpose(1, 2)
+    return sharding.attention_local(local, q.transpose(1, 2),
+                                    k.transpose(1, 2),
+                                    v.transpose(1, 2)).transpose(1, 2)
+
+
 def blocked_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                       block_q: int = 512, block_kv: int = 512, softcap=None):
     """Blocked online-softmax attention, differentiable (the reference's
@@ -80,8 +95,12 @@ def blocked_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     probabilities are cast to v's dtype before the PV product.
     ``q_offset`` is the absolute position of q[0].  Each query block runs
     under a checkpoint, so its backward recomputes the KV loop instead of
-    keeping score blocks.
+    keeping score blocks.  DTensors run on their local shards.
     """
+    if isinstance(q, DTensor):
+        return _on_local_shards(blocked_attention, q, k, v, causal=causal,
+                                q_offset=q_offset, block_q=block_q,
+                                block_kv=block_kv, softcap=softcap)
     B, Sq, Hq, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -131,8 +150,13 @@ def blocked_local_attention(q, k, v, *, window: int, q_offset: int = 0,
     (inclusive of self).  q (B,Sq,Hq,Dh), k/v (B,Skv,Hkv,Dh) with Skv ==
     q_offset + Sq -> (B,Sq,Hq,Dh).  Keys are padded on the left by
     ``window`` so each query block takes a span of window + block keys;
-    each block runs under a checkpoint.
+    each block runs under a checkpoint.  DTensors run on their local
+    shards.
     """
+    if isinstance(q, DTensor):
+        return _on_local_shards(blocked_local_attention, q, k, v,
+                                window=window, q_offset=q_offset,
+                                block_q=block_q)
     B, Sq, Hq, Dh = q.shape
     G = Hq // k.shape[2]
     bq = min(block_q, Sq)

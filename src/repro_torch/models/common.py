@@ -8,6 +8,7 @@ import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 
@@ -75,6 +76,39 @@ def remat_wrap(fn, rc: RuntimeConfig):
                                 _dots_policy)
         return functools.partial(checkpoint, fn, context_fn=ctx)
     return functools.partial(checkpoint, fn)
+
+
+class _LogSigmoid(torch.autograd.Function):
+    """``F.logsigmoid`` with its backward in elementwise operations, which
+    DTensor shards (it has no strategy for ``aten.log_sigmoid_backward``).
+    The backward is ATen's: g * (1 - z / (1 + z)) for x < 0, else
+    g * z / (1 + z), z = exp(-|x|), with z the forward's own buffer where
+    ATen keeps one (a plain CPU tensor): then the gradient is bit-equal to
+    ``F.logsigmoid``'s."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import DTensor
+        if isinstance(x, DTensor):
+            out, z = F.logsigmoid(x), None
+        else:
+            out, z = torch.ops.aten.log_sigmoid_forward(x)
+            z = z if z.numel() == x.numel() else None
+        ctx.save_for_backward(x, z)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, z = ctx.saved_tensors
+        if z is None:
+            z = torch.exp(-torch.abs(x))
+        s = z / (1 + z)
+        return torch.where(x < 0, 1 - s, s) * g
+
+
+def log_sigmoid(x):
+    """``F.logsigmoid(x)``, differentiable on DTensors (``_LogSigmoid``)."""
+    return _LogSigmoid.apply(x)
 
 
 # ---------------------------------------------------------------------------

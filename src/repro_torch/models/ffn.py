@@ -21,7 +21,8 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.runtime.sharding import reshape, shard_activation
+from repro_torch.runtime.sharding import contiguous_grad, reshape, \
+    shard_activation
 
 # (expert ids, top-k margin) of every moe_dispatch call while a
 # ``record_routes()`` block is open
@@ -147,8 +148,9 @@ def moe_dispatch(x, p, cfg):
     x_e = x_e * slot_valid[..., None].to(x.dtype)
     x_e = shard_activation(x_e, "moe_buf", None)                # EP layout
     h = torch.einsum("recd,edf->recf", x_e, p["w1"].to(x.dtype))
-    g = torch.einsum("recd,edf->recf", x_e, p["w3"].to(x.dtype))
-    h = shard_activation(h, "moe_buf", None)
+    g = contiguous_grad(torch.einsum("recd,edf->recf", x_e,
+                                     p["w3"].to(x.dtype)))
+    h = contiguous_grad(shard_activation(h, "moe_buf", None))
     y_e = torch.einsum("recf,efd->recd", (F.silu(h) * g).contiguous(),
                        p["w2"].to(x.dtype))
     y_e = y_e * slot_gate[..., None]

@@ -64,17 +64,19 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.common import (DEFAULT_RC, RuntimeConfig, apply_norm,
-                                       checkpoint, dense_init, norm_params,
-                                       remat_wrap, softmax_xent_sums)
+                                       checkpoint, dense_init, log_sigmoid,
+                                       norm_params, remat_wrap,
+                                       softmax_xent_sums)
 from repro_torch.pytree import tree_leaves
 from repro_torch.runtime.device import resolve_device
-from repro_torch.runtime.sharding import (cache_leaf, reshape,
+from repro_torch.runtime.sharding import (cache_leaf, local_call, reshape,
                                           shard_activation, whole_dim)
 
 Params = Dict[str, Any]
@@ -576,33 +578,46 @@ def _mlstm_qkv(cfg, p, x, conv=None):
 
     def heads(t):
         return reshape(t, (t.shape[0], t.shape[1], cfg.n_heads, -1))
-    return heads(q), heads(k), heads(u), log_i, F.logsigmoid(f_pre), z, \
+    return heads(q), heads(k), heads(u), log_i, log_sigmoid(f_pre), z, \
         conv_state
 
 
 def _mlstm_out(cfg, h, p, hh, z):
     """The down-projection of the heads' outputs hh (..., H, dh),
     group-normed per head and gated by silu(z)."""
-    hh = rec_lib.groupnorm_heads(hh.reshape(z.shape), p["gn"], cfg.n_heads)
+    hh = rec_lib.groupnorm_heads(reshape(hh, z.shape), p["gn"], cfg.n_heads)
     return torch.matmul(hh * F.silu(z), p["w_down"].to(h.dtype))
 
 
-def _mlstm_full(cfg, rc, h, p, *, make_cache=True):
+def _mlstm_full(cfg, rc, h, p, *, train=False):
     """mLSTM prefill: the chunkwise form when S is a multiple (> 1) of
-    the chunk, else the parallel form and (with ``make_cache``) the final
-    state.  Returns (h, ((C, n, m) or None, conv_state))."""
+    the chunk, else the parallel form and the final state.  ``train``
+    keeps no state and runs the form on each rank's local shards of
+    DTensors, batch and (where they divide) heads split, as the blocked
+    attention does: DTensor's backward of its einsums fails once the
+    batch is sharded over two mesh dims.  Returns (h, ((C, n, m) or
+    None, conv_state))."""
     x = apply_norm(cfg.norm, h, p["ln"])
     q, k, v, log_i, log_f, z, conv_state = _mlstm_qkv(cfg, p, x)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))       # (B,H,S,dh)
     log_i, log_f = log_i.transpose(1, 2), log_f.transpose(1, 2)
     S, chunk = q.shape[2], cfg.xlstm.chunk
-    if S > chunk and S % chunk == 0:
+    chunked = S > chunk and S % chunk == 0
+    state = None
+    if train:
+        def form(*qkv_gates):
+            return rec_lib.mlstm_chunkwise(*qkv_gates, chunk=chunk)[0] \
+                if chunked else rec_lib.mlstm_parallel(*qkv_gates)
+        args = (q, k, v, log_i, log_f)
+        hh = local_call(form, args, (("batch", "model", None, None),) * 3
+                        + (("batch", "model", None),) * 2, 2) \
+            if isinstance(q, DTensor) else form(*args)
+    elif chunked:
         hh, state = rec_lib.mlstm_chunkwise(q, k, v, log_i, log_f,
                                             chunk=chunk)
     else:
         hh = rec_lib.mlstm_parallel(q, k, v, log_i, log_f)
-        state = rec_lib.mlstm_final_state(q, k, v, log_i, log_f) \
-            if make_cache else None
+        state = rec_lib.mlstm_final_state(q, k, v, log_i, log_f)
     out = shard_activation(_mlstm_out(cfg, h, p, hh.transpose(1, 2), z),
                            "residual", rc)
     return h + out, (state, conv_state)
@@ -766,7 +781,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
         def body(h, p):
             for j in range(n_m):
                 h = _mlstm_full(cfg, rc, h, _layer(p["m"], j),
-                                make_cache=False)[0]
+                                train=True)[0]
             return _slstm_full(cfg, rc, h, p["s"])[0]
         h = _run_layers(rc, h, blocks, body)
     else:

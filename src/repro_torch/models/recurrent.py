@@ -42,10 +42,10 @@ def _rglru_coeffs(x, p, n_heads):
     """x (B,S,d_rnn) -> a (gate-modulated decay), b (gated input), fp32."""
     B, S, d = x.shape
     xh = reshape(x, (B, S, n_heads, d // n_heads))
-    r = torch.sigmoid(block_diag_linear(xh, p["w_a"], p["b_a"])
-                      .reshape(B, S, d).float())
-    i = torch.sigmoid(block_diag_linear(xh, p["w_x"], p["b_x"])
-                      .reshape(B, S, d).float())
+    r = torch.sigmoid(reshape(block_diag_linear(xh, p["w_a"], p["b_a"]),
+                              (B, S, d)).float())
+    i = torch.sigmoid(reshape(block_diag_linear(xh, p["w_x"], p["b_x"]),
+                              (B, S, d)).float())
     lam = p["lam"].float()
     # jax.nn.softplus is logaddexp(x, 0)
     log_a = -RGLRU_C * r * torch.logaddexp(lam, torch.zeros_like(lam))
@@ -259,7 +259,7 @@ def groupnorm_heads(x, scale, n_heads, eps: float = 1e-5):
     mu = torch.mean(xh, dim=-1, keepdim=True)
     var = torch.var(xh, dim=-1, keepdim=True, unbiased=False)  # jnp.var
     y = (xh - mu) * torch.rsqrt(var + eps)
-    return (y.reshape(shp) * scale.float()).to(x.dtype)
+    return (reshape(y, shp) * scale.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

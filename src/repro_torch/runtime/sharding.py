@@ -37,7 +37,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 _TLS = threading.local()
 
@@ -234,7 +234,8 @@ def attention_local(kernel: Callable, q, k, v, *args, **kwargs):
     """``kernel(q, k, v, *args, **kwargs)`` on the local shards of the
     DTensors q, k, v in the kernels' layout (batch dim 0, heads dim 1):
     flash's (B, H, S, d) and decode's q (B, Hq, dh) against a (B, Hkv, S,
-    dh) cache.  The batch is placed as ``_attn_spec`` places it and the
+    dh) cache, or the blocked attention that training differentiates.
+    The batch is placed as ``_attn_spec`` places it and the
     query heads over 'model' where they divide; the key and value heads
     follow when they divide too, and otherwise stay whole, each shard
     taking the one KV head its query heads share (a shard's heads must
@@ -253,7 +254,13 @@ def attention_local(kernel: Callable, q, k, v, *args, **kwargs):
     q = q.redistribute(mesh, r.named(q_spec, tuple(q.shape)))
     k = k.redistribute(mesh, r.named(kv_spec, tuple(k.shape)))
     v = v.redistribute(mesh, r.named(kv_spec, tuple(v.shape)))
-    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    # under autograd: a KV tensor whole across query shards gets from each
+    # a partial gradient (its query heads' share)
+    kv_grad = [Partial() if isinstance(a, Shard) and not isinstance(b, Shard)
+               else b for a, b in zip(q.placements, k.placements)]
+    ql = q.to_local()
+    kl = k.to_local(grad_placements=kv_grad)
+    vl = v.to_local(grad_placements=kv_grad)
     if spec[2] and kv_heads is None and Hkv > 1:
         # KV heads whole, query heads sharded: shard j holds query heads
         # [j*hq, (j+1)*hq), all in KV group (j*hq) // G
@@ -311,14 +318,11 @@ def _view_groups(src, dst):
     return groups
 
 
-def reshape(x, shape):
-    """``x.reshape(shape)``.  A DTensor keeps a sharded dim's placement
-    where DTensor can: split into factors whose first the shards divide,
-    or merged as the first of its group.  Any other sharded dim of the
-    reshape is gathered first, as GSPMD would (40 heads of a projection
-    sharded 16 ways, a microbatch split of a data-sharded batch)."""
-    if not isinstance(x, DTensor):
-        return x.reshape(shape)
+def _reshape_placements(x, shape):
+    """(``shape`` with -1 resolved, the placements ``x`` takes before it
+    is viewed as ``shape``): a sharded dim keeps its placement where it is
+    split into factors whose first the shards divide, or merged as the
+    first of its group; any other sharded dim of the reshape is gathered."""
     shape = list(shape)
     if -1 in shape:
         known = 1
@@ -341,16 +345,90 @@ def reshape(x, shape):
             if not keep:
                 for m in split[d]:
                     place[m] = Replicate()
+    return shape, place
+
+
+def _dtensor_reshape(x, shape):
+    shape, place = _reshape_placements(x, shape)
     if place != list(x.placements):
-        x = x.redistribute(mesh, place)
+        x = x.redistribute(x.device_mesh, place)
     return x.reshape(shape)
+
+
+def _contiguous_shards(x):
+    """``x`` with contiguous local shards and the contiguous global stride:
+    DTensor views a shard as the global stride says, and a gradient may
+    come with a transposed stride over contiguous shards or the reverse."""
+    local = x.to_local()
+    if local.is_contiguous() and x.is_contiguous():
+        return x
+    local = local.contiguous()
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=_global_stride(local, tuple(x.shape)))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _contiguous_shards(g)
+
+
+def contiguous_grad(x):
+    """``x``, whose gradient (a DTensor's) is made contiguous on the way
+    back (``_contiguous_shards``): the expert products' einsums view
+    their gradients, which DTensor's backward may leave with a global
+    stride that its shards do not have."""
+    if isinstance(x, DTensor) and torch.is_grad_enabled() \
+            and x.requires_grad:
+        return _ContiguousGrad.apply(x)
+    return x
+
+
+class _Reshape(torch.autograd.Function):
+    """A DTensor reshape whose backward is placed as its forward: the
+    gradient is reshaped back by the same rule (DTensor's own backward
+    unflattens a dim whatever its shards, 10 heads of a 16-way sharded
+    2560 among them) and returned in the input's placements, a partial
+    sum's replicated (the gradient of a sum is each term's)."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = tuple(x.shape)
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in x.placements)
+        return _dtensor_reshape(x, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _dtensor_reshape(_contiguous_shards(g), ctx.shape)
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return _contiguous_shards(g), None
+
+
+def reshape(x, shape):
+    """``x.reshape(shape)``.  A DTensor keeps a sharded dim's placement
+    where DTensor can: split into factors whose first the shards divide,
+    or merged as the first of its group.  Any other sharded dim of the
+    reshape is gathered first, as GSPMD would (40 heads of a projection
+    sharded 16 ways, a microbatch split of a data-sharded batch).  Under
+    autograd the gradient takes the same way back (``_Reshape``)."""
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    return _Reshape.apply(x, tuple(shape))
 
 
 def local_call(kernel: Callable, tensors, specs, out_of: int, **kwargs):
     """``kernel(*locals, **kwargs)`` on the local shards of DTensors
     ``tensors``, each redistributed to its spec ('batch' is the rules'
     data axes); the output takes the placements of ``tensors[out_of]``
-    and its shape."""
+    and its shape, in the output's own layout.  Differentiable: each
+    input's gradient comes back in its redistributed placements."""
     r = current_rules()
     mesh = tensors[0].device_mesh
     if r is None:
@@ -367,7 +445,8 @@ def local_call(kernel: Callable, tensors, specs, out_of: int, **kwargs):
     out = kernel(*(t.to_local() for t in moved), **kwargs)
     ref_t = moved[out_of]
     return DTensor.from_local(out, mesh, ref_t.placements, run_check=False,
-                              shape=ref_t.shape, stride=ref_t.stride())
+                              shape=ref_t.shape,
+                              stride=_global_stride(out, ref_t.shape))
 
 
 def _global_stride(local, shape):

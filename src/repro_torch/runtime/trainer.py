@@ -1,11 +1,14 @@
 """train_step / serve_step factories (twin of the reference's
-``runtime/trainer.py``, without its sharding: one card).
+``runtime/trainer.py``).
 
 ``make_train_step`` builds the step: gradients of ``lm.loss_fn`` by
 ``torch.autograd.grad``, optional microbatch accumulation, the AdamW
 update.  The loss runs ``lm.forward``'s differentiable twins and launches
 no kernel; the serve steps run ``lm.prefill`` and ``lm.decode_step``,
-which do.
+which do.  Every step takes plain tensors, or DTensors with
+``runtime.sharding``'s placements under ``axis_rules`` (the reference's
+sharded step; ``launch/dryrun.py`` on a fake group, gloo ranks in the
+tests).
 """
 from __future__ import annotations
 
@@ -35,7 +38,10 @@ def loss_and_grads(cfg: ArchConfig, params, batch, rc: RuntimeConfig):
     with torch.enable_grad():
         loss, metrics = lm.loss_fn(
             cfg, tree_unflatten(params, dict(zip(paths, leaves))), batch, rc)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not reach (the empty attention stack of a
+        # hybrid shorter than its pattern) gets zeros, as jax.grad gives
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), \
         tree_unflatten(params, dict(zip(paths, grads)))
 

@@ -680,6 +680,30 @@ def _to_device(tree):
     return tree.cuda()
 
 
+def test_log_sigmoid_gradient_on_the_card_equals_logsigmoids(gen):
+    """On a CUDA tensor ATen keeps no forward buffer and its backward
+    computes z = exp(-|x|) in the kernel; ``common.log_sigmoid``'s
+    backward computes the same formula in elementwise operations (which
+    DTensor shards): within one ulp of ``F.logsigmoid``'s gradient over
+    |x| up to 60."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.common import log_sigmoid
+    x = torch.cat([torch.linspace(-60.0, 60.0, 24001, device="cuda"),
+                   _randn(gen, 4000) * 4])
+    g = _randn(gen, x.numel())
+    a = x.clone().requires_grad_(True)
+    b = x.clone().requires_grad_(True)
+    ya, yb = log_sigmoid(a), F.logsigmoid(b)
+    assert torch.equal(ya, yb)
+    ya.backward(g)
+    yb.backward(g)
+    ulp = torch.nextafter(b.grad.abs(), torch.tensor(float("inf"),
+                                                     device="cuda")) \
+        - b.grad.abs()
+    assert bool(((a.grad - b.grad).abs() <= ulp).all())
+
+
 def test_kernel_wrappers_refuse_inputs_that_require_grad(gen):
     def r(*shape):
         return _randn(gen, *shape).requires_grad_(True)

@@ -5,7 +5,9 @@ harness (``repro_torch.launch.{dryrun,perf,mesh,specs}``,
 * input specs, the policy tables and the perf variants equal the JAX
   package's;
 * one ``-smoke`` cell of each step kind runs on a fake (2, 2) mesh, its
-  argument bytes equal to the sum of the local shards' bytes;
+  argument bytes equal to the sum of the local shards' bytes, and so do
+  the full-width train cells that raised in DTensor's backward, cut in
+  depth, on the smallest fake mesh that showed each error;
 * the analysis counts a known product's flops and bytes exactly, and a
   known redistribution on a fake 4-rank mesh as the expected collective
   with the ring model's link bytes;
@@ -152,25 +154,24 @@ def _local_bytes(tree, placements, mesh_shape):
     return total
 
 
-@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
-def test_smoke_cell_on_a_fake_2x2_mesh(kind):
-    arch = "tinyllama-1.1b-smoke"
-    shape = ShapeConfig("smoke", 32, 4, kind)
-    rec = dryrun.measure_cell(arch, shape, (2, 2), ("data", "model"))
-    assert not dist.is_initialized()
-    # the argument bytes, from the specs alone
+def _argument_bytes(arch, shape, mesh_shape):
+    """A cell's argument bytes a device, from the specs alone."""
+    kind = shape.kind
     cfg = configs.get_config(arch)
     rc = dryrun.cell_rc(arch, kind)
-    with dryrun.fake_mesh((2, 2), ("data", "model")) as mesh:
+    with dryrun.fake_mesh(mesh_shape, ("data", "model")) as mesh:
         rules = sharding.AxisRules(mesh, sequence_parallel=True)
         if kind == "train":
             params = specs.params_abstract(cfg, rc, master=True)
             from repro_torch.optim import init_opt_state
             opt = init_opt_state(params, dryrun.cell_opt(arch))
+            mv = [k for k in opt if k != "step"]
             trees = [(params, sharding.param_specs(params, rules)),
-                     ({k: opt[k] for k in ("m", "v")},
-                      {k: sharding.param_specs(params, rules)
-                       for k in ("m", "v")}),
+                     ({k: opt[k] for k in mv},
+                      {k: (sharding.param_specs(params, rules)
+                           if k in ("m", "v")
+                           else sharding.replicated(opt[k], rules))
+                       for k in mv}),
                      ({"step": opt["step"]},
                       sharding.replicated({"step": opt["step"]}, rules))]
             batch = specs.train_batch_specs(cfg, shape, rc)
@@ -184,7 +185,16 @@ def test_smoke_cell_on_a_fake_2x2_mesh(kind):
                 cache = specs.cache_specs_abstract(cfg, shape, rc)
                 trees.append((cache, sharding.cache_specs(cache, rules)))
         trees.append((batch, sharding.batch_specs(batch, rules)))
-    want = sum(_local_bytes(t, p, (2, 2)) for t, p in trees)
+    return sum(_local_bytes(t, p, mesh_shape) for t, p in trees)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_smoke_cell_on_a_fake_2x2_mesh(kind):
+    arch = "tinyllama-1.1b-smoke"
+    shape = ShapeConfig("smoke", 32, 4, kind)
+    rec = dryrun.measure_cell(arch, shape, (2, 2), ("data", "model"))
+    assert not dist.is_initialized()
+    want = _argument_bytes(arch, shape, (2, 2))
     assert rec["argument_size_in_bytes"] == want
     assert rec["n_devices"] == 4
     assert rec["per_device_hbm_bytes"] \
@@ -192,6 +202,49 @@ def test_smoke_cell_on_a_fake_2x2_mesh(kind):
     assert rec["fits_80gib"] and rec["flops_per_device"] > 0
     assert rec["collectives"] and rec["collective_link_bytes"] > 0
     assert rec["wall_seconds"] < 30
+
+
+# The train_4k cells that raised in the backward before the port's
+# sharding.reshape (_Reshape), common.log_sigmoid and
+# sharding.contiguous_grad, at full widths with the depth cut, on the
+# smallest fake mesh that reproduced each error: (arch, cut as
+# dataclasses.replace keywords, a dict replacing a sub-config's fields,
+# mesh, seq, batch).  Each raised on the tree before those changes.
+TRAIN_GAPS = {
+    # the expert products' backward: a gradient whose global stride its
+    # shards lack, then aten.view of a non-contiguous local gradient
+    # (8 rows: 4 microbatches of 2, one a data rank)
+    "maverick-view": ("llama4-maverick-400b-a17b", {"n_layers": 2},
+                      (2, 2), 16, 8),
+    # the RG-LRU's 10-head merge: 2560 sharded 4 ways does not
+    # unflatten into 10 heads
+    "recurrentgemma-heads": ("recurrentgemma-2b", {"n_layers": 2},
+                             (1, 4), 16, 2),
+    # aten.log_sigmoid_backward has no sharding strategy
+    "xlstm-logsigmoid": ("xlstm-125m",
+                         {"n_layers": 2, "xlstm": {"slstm_every": 2}},
+                         (2, 2), 16, 4),
+    # the mLSTM's 4-head split: 1536 sharded 8 ways into 4 heads
+    "xlstm-heads": ("xlstm-125m",
+                    {"n_layers": 2, "xlstm": {"slstm_every": 2}},
+                    (1, 8), 16, 2),
+}
+
+
+@pytest.mark.parametrize("gap", sorted(TRAIN_GAPS))
+def test_a_train_cell_that_raised_in_the_backward_runs(gap, monkeypatch):
+    arch, cut, mesh_shape, seq, batch = TRAIN_GAPS[gap]
+    cfg = configs.ARCHS[arch]
+    monkeypatch.setitem(configs.ARCHS, arch, dataclasses.replace(cfg, **{
+        k: dataclasses.replace(getattr(cfg, k), **v)
+        if isinstance(v, dict) else v for k, v in cut.items()}))
+    shape = ShapeConfig("cut", seq, batch, "train")
+    rec = dryrun.measure_cell(arch, shape, mesh_shape, ("data", "model"),
+                              mode=dryrun.cell_mode(arch, "train_4k"))
+    assert not dist.is_initialized()
+    assert rec["flops_per_device"] > 0
+    assert rec["argument_size_in_bytes"] \
+        == _argument_bytes(arch, shape, mesh_shape)
 
 
 def test_a_failing_cell_is_recorded_and_a_bug_propagates(monkeypatch,
