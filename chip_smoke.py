@@ -26,7 +26,9 @@ and then, failing on the first phase that goes wrong:
    frame); flash and decode at LLaVA-NeXT-34B's GQA 56/8 at dh 128 (G 7:
    decode head groups of 4 + 3) and MusicGen-large's MHA 32/32 at dh 64
    (G 1), fp32 and bf16, every operand inside a NaN frame; the bf16 flash
-   kernel at every (dqk, dv) pair it instantiates; decode at the edges of
+   kernel at every (dqk, dv) pair it instantiates, and both flash kernels
+   there with ``q_offset``, ``softcap`` and a window after an offset
+   (keys past Skv NaN in their buffer); decode at the edges of
    its split plan's chunks, each call made twice and required to repeat
    bit for bit, and one decode call profiled to be one kernel launch;
 3. checks full-width TinyLlama-1.1B, and recurrentgemma-2b cut to 5
@@ -69,7 +71,9 @@ and then, failing on the first phase that goes wrong:
 6. times each kernel at its main path's shapes against its plain version,
    one PyTorch library call (where one computes the same function) and
    its bound on the card (flash and decode also at LLaVA-NeXT-34B's and
-   MusicGen-large's shapes), and the scan plan's alternatives (channels x
+   MusicGen-large's shapes; flash on the second 512-token chunk of a
+   1024-token TinyLlama prompt, plainly and with a score cap of 50), and
+   the scan plan's alternatives (channels x
    steps x stages) at the hybrid's 512-token prefill;
 7. (run after 5, before 6) open-loop serving: (a) the 16 points of the
    reference's fig12 smoke grid through ``repro_torch.serving.fig12``,
@@ -140,8 +144,10 @@ and then, failing on the first phase that goes wrong:
    pin, points/s from the second run on a ``{"lockstep_devices": ...}``
    line; ``lockstep_kernel_count`` equals phase 8's profiled kernel
    launches a step; (b) the dry run (``repro_torch.launch.dryrun``) of
-   tinyllama-1.1b at train_4k and decode_32k and of qwen1.5-110b at
-   decode_32k on a fake 16x16 mesh, on the host, one ``{"dryrun": ...}``
+   tinyllama-1.1b at train_4k, prefill_32k and decode_32k, of
+   deepseek-v2-lite-16b and recurrentgemma-2b at prefill_32k and of
+   qwen1.5-110b at decode_32k on a fake 16x16 mesh, on the host, one
+   ``{"dryrun": ...}``
    line each with the host's CPU count; (c) full-width tinyllama-1.1b at
    prefill_32k (global batch 2) and decode_32k (global batch 16, the
    cache at position 32767): the step plainly, then on DTensors under
@@ -156,7 +162,14 @@ and then, failing on the first phase that goes wrong:
    the 1-rank mesh, from the same parameters, optimizer state and batch:
    the loss, every updated leaf and moment bit-equal, no kernel launched
    by either; one ``{"sharded_train": ...}`` line with both steps'
-   seconds and peak card memory.
+   seconds and peak card memory; (e) the sharded steps of the gloo tests
+   on the host, under this machine's torch: prefill and 4 decode steps of
+   three smoke configs and one AdamW step of seven train cases, each on
+   four gloo ranks of a (2, 2) mesh with the sequence-parallel residual
+   against the plain port (logits within 1e-5; the train cases within
+   tests/test_torch_sharded_train.py's tolerances), as many cases side by
+   side as the host's CPUs hold; one ``{"gloo_torch": ...}`` line with
+   the torch version and each case's largest error.
 
 The line before the last is the card's name and power limit; the last is
 ``{"ok": true, "device": {...}}``.  Everything printed is also written to
@@ -191,9 +204,14 @@ PEAK_FP32 = 67e12            # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 RECORD: dict = {}
+T0 = time.perf_counter()
 
 
 def log(msg: str = "") -> None:
+    """Prints ``msg``; a phase's heading ("phase ...") with the seconds
+    since the script started, where the script's time limit is spent."""
+    if msg.startswith("phase "):
+        msg += f"  [{time.perf_counter() - T0:.0f} s]"
     print(msg, flush=True)
 
 
@@ -358,8 +376,9 @@ def kernel_report() -> list:
     scan_entries = 2 * len(rglru_scan.CHANNELS) * len(rglru_scan.STEPS) \
         * len(rglru_scan.STAGES)                       # x the two routes
     from repro_torch.kernels.flash_attention import HEAD_DIMS
-    assert count["flash_mma_kernel"] == len(HEAD_DIMS) \
-        and count["flash_kernel"] == len(HEAD_DIMS) \
+    # each flash pair twice: uncapped and capped (softcap > 0)
+    assert count["flash_mma_kernel"] == 2 * len(HEAD_DIMS) \
+        and count["flash_kernel"] == 2 * len(HEAD_DIMS) \
         and count["decode_kernel"] == 10 \
         and count["gemm_wgmma_kernel"] == 8 \
         and count["gemm_f32_kernel"] == 8 \
@@ -376,6 +395,10 @@ def kernel_report() -> list:
 # can flip a bf16 rounding, one bf16 ulp is 2^-8 relative (0.0078 at 1.0),
 # so outputs of size ~1-3 are held to 2e-2.
 ATTN_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+# where outputs are not held to that size (phase_flash_options): one bf16
+# ulp is at most 2^-7 of the value it rounds, so a flipped rounding of the
+# largest output stays within ATTN_TOL + ATTN_RTOL * max|output|
+ATTN_RTOL = {torch.float32: 0.0, torch.bfloat16: 2 ** -7}
 
 
 def randn(shape, gen, dtype=torch.float32):
@@ -692,9 +715,46 @@ def phase_scan_kernel(dev, gen):
             " bit-equal")
 
 
+# (q_offset, softcap, window) of phase_flash_options: a later chunk of a
+# prompt, a cap that bites (q scaled by 4: scaled scores of std ~4 against
+# a cap of 5), both, and a window across the chunk's start
+FLASH_OPTIONS = ((156, None, 0), (0, 5.0, 0), (156, 5.0, 0), (156, None, 64))
+
+
+def phase_flash_options(gen, dqk, dv, dtype):
+    """Flash at one (dqk, dv) pair with the reference's ``q_offset`` and
+    ``softcap`` and a window after an offset (``FLASH_OPTIONS``): a
+    ragged 100-query chunk, GQA 8/2, against Skv = q_offset + 100 keys
+    whose buffer holds NaN rows past Skv (a kernel that reads a key past
+    Skv returns NaN), held to the plain version within ``ATTN_TOL`` plus
+    ``ATTN_RTOL`` of the largest output: q scaled by 4 sharpens the
+    softmax, whose outputs then reach the values' extremes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_tpu
+    S = 100
+    for off, cap, window in FLASH_OPTIONS:
+        Skv = off + S
+        q = (4 * randn((1, S, 8, dqk), gen)).to(dtype).transpose(1, 2)
+        kv = []
+        for d in (dqk, dv):
+            buf = torch.full((1, Skv + 16, 2, d), float("nan"), dtype=dtype,
+                             device=gen.device)
+            buf[:, :Skv] = randn((1, Skv, 2, d), gen, dtype)
+            kv.append(buf[:, :Skv].transpose(1, 2))
+        out = flash_attention_tpu(q, *kv, q_offset=off, softcap=cap,
+                                  window=window, block_q=S, block_kv=Skv)
+        assert bool(torch.isfinite(out).all()), (dqk, dv, off, cap, window)
+        check_close(f"flash {dtype} dh{dqk}/{dv} S{S} Skv{Skv} q_offset "
+                    f"{off} softcap {cap} window {window} (NaN past Skv)",
+                    out, ref.flash_attention_ref(
+                        q, *kv, q_offset=off, softcap=cap, window=window),
+                    ATTN_TOL[dtype], ATTN_RTOL[dtype])
+
+
 def phase_attention_edges(dev, gen):
     """The bf16 tensor-core flash kernel at every (dqk, dv) pair it
-    instantiates;
+    instantiates, and both flash kernels there with ``q_offset``,
+    ``softcap`` and a window after an offset (``phase_flash_options``);
     decode at the edges of its split plan's chunks, every call twice and
     bit-identical (the last block reset its counter), and one call
     profiled to be one kernel launch."""
@@ -728,6 +788,8 @@ def phase_attention_edges(dev, gen):
                     flash_attention_tpu(q, k, v, window=64, block_q=300,
                                         block_kv=300),
                     ref.flash_attention_ref(q, k, v, window=64), ATTN_TOL[bf])
+        for dt in (torch.float32, bf):
+            phase_flash_options(gen, dh, dv, dt)
     # decode: TinyLlama, the hybrid's ring, and B 2 x Hkv 2 (more than one
     # counter) at both families' head shapes
     for (B, Hkv, G, dh, S) in [(1, 4, 8, 64, 1024), (1, 1, 10, 256, 2048),
@@ -2539,13 +2601,17 @@ def phase_train(dev, card, power) -> dict:
 #     (runs after 10, before the timing of 6)
 # ---------------------------------------------------------------------------
 
-# the FULL corpus's shard counts; the dry-run cells on the 16x16 mesh;
+# the FULL corpus's shard counts; the dry-run cells on the 16x16 mesh
+# (the prefill cells shard the residual's sequence over 'model');
 # full-width tinyllama-1.1b's two cells on the card, only the global
 # batch cut (from 32 and 128); the dry run's peak against the card's
 PHASE11_DEVICES = (1, 2, 4)
 DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"),
                 ("tinyllama-1.1b", "decode_32k"),
-                ("qwen1.5-110b", "decode_32k"))
+                ("qwen1.5-110b", "decode_32k"),
+                ("tinyllama-1.1b", "prefill_32k"),
+                ("deepseek-v2-lite-16b", "prefill_32k"),
+                ("recurrentgemma-2b", "prefill_32k"))
 SHARDED_ARCH = "tinyllama-1.1b"
 SHARDED_CELLS = (("prefill_32k", 2), ("decode_32k", 16))
 # (d): train_4k's 4096 tokens a sequence, its global batch cut from 256
@@ -2858,18 +2924,276 @@ def phase_sharded_train(dev) -> dict:
     return out
 
 
-def phase_sharding(dev) -> dict:
+# (e): the sharded steps of tests/test_torch_device_sharding.py (serve:
+# prefill and 4 decode steps) and tests/test_torch_sharded_train.py (one
+# AdamW step), four gloo ranks on a (2, 2) mesh on the host, every step
+# with the sequence-parallel residual.  The tests import these programs,
+# so one copy runs under each machine's torch.
+GLOO_SERVE_ARCHS = ("tinyllama-1.1b-smoke", "deepseek-v2-lite-16b-smoke",
+                    "recurrentgemma-2b-smoke")
+# (arch, cut): the cut as keyword arguments of dataclasses.replace, a
+# dict value replacing fields of that sub-config
+GLOO_TRAIN_CASES = [
+    ("tinyllama-1.1b-smoke", {}),
+    ("recurrentgemma-2b-smoke", {}),
+    ("xlstm-125m-smoke", {}),
+    ("llama4-maverick-400b-a17b-smoke", {}),
+    ("xlstm-125m-smoke", {"n_heads": 3, "n_kv_heads": 3, "d_model": 48,
+                          "xlstm": {"chunk": 8}}),
+    ("recurrentgemma-2b-smoke", {"n_heads": 3, "rglru": {"d_rnn": 48}}),
+    ("llama4-maverick-400b-a17b-smoke", {"moe": {"d_expert": 256}}),
+]
+GLOO_TRAIN_IDS = [a + ("-cut" if c else "") for a, c in GLOO_TRAIN_CASES]
+# both sides sum the same terms in other orders (the sharded one over
+# ranks, then locally): logits, and the loss, gradient norm and each
+# gradient, to 1e-5 of their scale
+GLOO_TOL = 1e-5
+
+# one serve rank: the unsharded steps, then the same steps on DTensors
+# under axis_rules; prints the max logit error of the prefill and of each
+# decode step as JSON.  argv: port, rank, arch
+GLOO_SERVE_RANK = """
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch import configs
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.models import lm
+from repro_torch.models.common import RuntimeConfig
+from repro_torch.runtime import sharding
+
+port, rank, arch = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=4)
+cfg = configs.get_config(arch)
+rc = RuntimeConfig(compute_dtype=torch.float32, param_dtype=torch.float32,
+                   sequence_parallel=True)
+params = lm.init_params(cfg, torch.Generator().manual_seed(0), rc, "cpu")
+toks = torch.from_numpy(np.random.default_rng(0).integers(
+    0, cfg.vocab, (4, 16)))
+want, cache = lm.prefill(cfg, params, {"tokens": toks}, rc, max_len=32)
+wants, nxt = [want], toks[:, -1]
+for _ in range(4):
+    logits, cache = lm.decode_step(cfg, params, nxt, cache, rc)
+    wants.append(logits)
+    nxt = logits.argmax(-1)
+mesh = make_debug_mesh(2, 2)
+rules = sharding.AxisRules(mesh, sequence_parallel=True)
+dparams = sharding.distribute(params, sharding.param_specs(params, rules),
+                              mesh)
+
+
+def batch(t):
+    return sharding.distribute(
+        {"t": t}, sharding.batch_specs({"t": t}, rules), mesh)["t"]
+
+
+errs = []
+with sharding.axis_rules(rules), implicit_replication():
+    got, cache = lm.prefill(cfg, dparams, {"tokens": batch(toks)}, rc,
+                            max_len=32)
+    errs.append(float((got.full_tensor() - wants[0]).abs().max()))
+    nxt = toks[:, -1]
+    for i in range(4):
+        got, cache = lm.decode_step(cfg, dparams, batch(nxt), cache, rc)
+        errs.append(float((got.full_tensor() - wants[i + 1]).abs().max()))
+        nxt = wants[i + 1].argmax(-1)
+dist.destroy_process_group()
+print(json.dumps(errs))
+"""
+
+# one train rank: the plain step, then the same step on DTensors under
+# axis_rules; prints the comparison as JSON.  argv: port, rank, arch, cut
+GLOO_TRAIN_RANK = """
+import dataclasses, json, sys
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch import configs
+from repro_torch.data import batch_for_arch
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.models.common import RuntimeConfig
+from repro_torch.optim import OptConfig
+from repro_torch.pytree import tree_items
+from repro_torch.runtime import sharding
+from repro_torch.runtime.trainer import init_train_state, make_train_step
+
+port, rank, arch = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+cut = json.loads(sys.argv[4])
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=4)
+cfg = configs.get_config(arch)
+cfg = dataclasses.replace(cfg, **{
+    k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+    else v for k, v in cut.items()})
+rc = RuntimeConfig(compute_dtype=torch.float32, param_dtype=torch.float32,
+                   remat_policy="full", sequence_parallel=True)
+opt_cfg = OptConfig(lr=3e-3, warmup_steps=2, decay_steps=10,
+                    moment_dtype=torch.float32)
+params, opt = init_train_state(cfg, torch.Generator().manual_seed(0), rc,
+                               opt_cfg, device="cpu")
+batch = {k: torch.from_numpy(v)
+         for k, v in batch_for_arch(cfg, 16, 4, 0).items()}
+step = make_train_step(cfg, rc, opt_cfg)
+want_p, want_o, want_m = step(params, opt, batch)
+
+mesh = make_debug_mesh(2, 2)
+rules = sharding.AxisRules(mesh, sequence_parallel=True)
+p_spec = sharding.param_specs(params, rules)
+o_spec = {k: p_spec if k in ("m", "v") else sharding.replicated(v, rules)
+          for k, v in opt.items()}
+args = (sharding.distribute(params, p_spec, mesh),
+        sharding.distribute(opt, o_spec, mesh),
+        sharding.distribute(batch, sharding.batch_specs(batch, rules), mesh))
+with sharding.axis_rules(rules), implicit_replication():
+    got_p, got_o, got_m = step(*args)
+
+
+def full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+lr, eps, b1 = float(want_m["lr"]), opt_cfg.eps, opt_cfg.b1
+got_p, got_g = dict(tree_items(got_p)), dict(tree_items(got_o["m"]))
+want_g = dict(tree_items(want_o["m"]))
+leaves = {}
+for path, w in tree_items(want_p):
+    gw, gg = want_g[path] / (1 - b1), full(got_g[path]) / (1 - b1)
+    dg = (gg - gw).abs()
+    implied = lr * eps * dg / (torch.minimum(gg.abs(), gw.abs()) + eps) ** 2
+    dw = (full(got_p[path]) - w).abs()
+    leaves["/".join(path)] = {
+        "dg": float(dg.max()), "g_scale": float(gw.abs().max()),
+        "dw": float(dw.max()), "over": float((dw - implied).max())}
+print(json.dumps({
+    "loss": [float(full(got_m["loss"])), float(want_m["loss"])],
+    "grad_norm": [float(full(got_m["grad_norm"])),
+                  float(want_m["grad_norm"])],
+    "leaves": leaves}))
+dist.destroy_process_group()
+"""
+
+
+def run_gloo(program: str, args, ranks: int = 4, timeout: float = 120) -> list:
+    """Run ``program`` as ``ranks`` ``python -c`` processes of one gloo
+    group on a free localhost port (argv: port, rank, *args) and return
+    each rank's last stdout line, parsed as JSON.  Raises naming the rank
+    and the end of its stderr if one fails; kills every rank left."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    path = [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(filter(None, path)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", program, str(port), str(r), *map(str, args)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(ranks)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"gloo rank {r} exited {p.returncode}: "
+                               f"{err[-3000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+
+
+def gloo_serve_err(res) -> float:
+    """The largest logit error of a serve case's ranks (5 steps each)."""
+    assert all(len(errs) == 5 for errs in res), res
+    return max(max(errs) for errs in res)
+
+
+def gloo_train_err(res) -> float:
+    """The largest error of a train case's ranks as a share of its bound:
+    the loss, the gradient norm and each gradient over GLOO_TOL of their
+    scale, each updated weight's excess over AdamW's implied gap over
+    GLOO_TOL.  At most 1 passes."""
+    worst = 0.0
+    for r in res:
+        got, want = r["loss"]
+        worst = max(worst, abs(got - want) / (GLOO_TOL * max(1.0, abs(want))))
+        got, want = r["grad_norm"]
+        worst = max(worst, abs(got - want) / (GLOO_TOL * want))
+        assert len(r["leaves"]) > 0
+        for lf in r["leaves"].values():
+            worst = max(worst, lf["dg"] / (GLOO_TOL * lf["g_scale"]),
+                        lf["over"] / GLOO_TOL)
+    return worst
+
+
+def gloo_torch_cases(ranks: int = 4, timeout: float = 300) -> dict:
+    """The 3 serve and 7 train cases of four gloo ranks on the host, as
+    many cases side by side as the host's CPUs hold one rank each: the
+    torch version and each case's largest error against its test's
+    tolerance.  Logs nothing: ``main`` runs it on a thread of its own."""
+    from concurrent.futures import ThreadPoolExecutor
+    # (name, program, argv, error of the ranks' output, its limit)
+    cases = ([(f"serve/{a}", GLOO_SERVE_RANK, (a,), gloo_serve_err,
+               GLOO_TOL) for a in GLOO_SERVE_ARCHS]
+             + [(f"train/{i}", GLOO_TRAIN_RANK, (a, json.dumps(c)),
+                 gloo_train_err, 1.0)
+                for i, (a, c) in zip(GLOO_TRAIN_IDS, GLOO_TRAIN_CASES)])
+
+    def one(case):
+        name, program, args, err_of, limit = case
+        t0 = time.perf_counter()
+        try:
+            err = err_of(run_gloo(program, args, ranks, timeout))
+            rec = {"case": name, "max_err": err, "limit": limit,
+                   "ok": err <= limit}
+        except Exception as e:  # recorded, then the phase fails
+            rec = {"case": name, "ok": False,
+                   "error": f"{type(e).__name__}: {e}"[-3000:]}
+        rec["s"] = time.perf_counter() - t0
+        return rec
+
+    t0 = time.perf_counter()
+    width = max(1, (os.cpu_count() or 1) // ranks)
+    with ThreadPoolExecutor(width) as pool:
+        recs = list(pool.map(one, cases))
+    return {"torch": torch.__version__, "side_by_side": width,
+            "host_cpus": os.cpu_count(),
+            "wall_s": time.perf_counter() - t0, "cases": recs}
+
+
+def phase_gloo_torch(out=None) -> dict:
+    """(e) ``gloo_torch_cases`` (run here unless ``out`` is its result):
+    every case must pass its test's tolerance.  One ``{"gloo_torch":
+    ...}`` line with the torch version and each case's largest error."""
+    out = out or gloo_torch_cases()
+    log(json.dumps({"gloo_torch": out}))
+    bad = [r for r in out["cases"] if not r["ok"]]
+    assert not bad, bad
+    return out
+
+
+def phase_sharding(dev, gloo=None) -> dict:
     """Phase 11: (a) ``phase_devices``, (b) ``phase_dryrun_cells``, (c)
     ``phase_sharded_cell`` for each of ``SHARDED_CELLS``, (d)
-    ``phase_sharded_train``."""
+    ``phase_sharded_train``, (e) ``phase_gloo_torch`` of ``gloo``, the
+    cases' result where ``main`` ran them earlier."""
     log("phase 11: the lockstep engine's devices > 1, the dry run, and "
-        "sharded steps against their dry run")
+        "sharded steps against their dry run and on gloo ranks")
     t0 = time.perf_counter()
     out = {"devices": phase_devices(dev),
            "dryrun": phase_dryrun_cells(),
            "cells": [phase_sharded_cell(dev, k, b)
                      for k, b in SHARDED_CELLS],
-           "train": phase_sharded_train(dev)}
+           "train": phase_sharded_train(dev),
+           "gloo": phase_gloo_torch(gloo)}
     out["wall_s"] = time.perf_counter() - t0
     log(f"  phase 11: {out['wall_s']:.1f} s on {os.cpu_count()} host "
         f"CPUs")
@@ -2896,6 +3220,33 @@ def _bound(flops, nbytes, peak):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def flex_softcap_call(q, k, v, q_offset: int, softcap: float):
+    """One PyTorch call that computes the capped chunk of phase 6:
+    ``flex_attention`` (compiled, as it must be to run fused) with a
+    score_mod c * tanh(s / c) on the scaled score and a causal block mask
+    on q_offset + i, GQA in the call.  A yardstick only: the port never
+    calls it.  Inductor's and Triton's caches go under build/."""
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    inductor_config.compile_threads = 1       # no pool of worker processes
+
+    def score_mod(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    def mask_mod(b, h, qi, ki):
+        return ki <= qi + q_offset
+
+    block_mask = create_block_mask(mask_mod, None, None, q.shape[2],
+                                   k.shape[2], device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    return lambda: flex(q, k, v, score_mod=score_mod, block_mask=block_mask,
+                        enable_gqa=True)
 
 
 def phase_timing(dev, launches, card, power):
@@ -3013,6 +3364,45 @@ def phase_timing(dev, launches, card, power):
     # last position of a 1024-slot cache; prefill of the prompt)
     decode_row("decode_attention", 32, 4, 64, 1024, 535, "")
     flash_row("flash_attention", 32, 4, 64, 512, 0, "")
+    # the same layer on the second 512-token chunk of a 1024-token prompt
+    # (q_offset 512, the reference's chunked prefill), plainly and with
+    # Gemma 2's published score cap of 50: no model's path passes either
+    # option (the reference's neither), so these rows carry the flash
+    # kernel's launches on the tinyllama path.  SDPA takes the offset as a
+    # boolean mask; it has no cap, so the capped row's library call is
+    # flex_attention (flex_softcap_call), held to the plain version first
+    from repro_torch.kernels.meta import attention_pairs
+    S, Skv, off = 512, 1024, 512
+    q = randn((1, S, 32, 64), gen, bf).transpose(1, 2)
+    k = randn((1, Skv, 4, 64), gen, bf).transpose(1, 2)
+    v = randn((1, Skv, 4, 64), gen, bf).transpose(1, 2)
+    kr, vr = k.repeat_interleave(8, dim=1), v.repeat_interleave(8, dim=1)
+    mask = torch.arange(Skv, device=dev)[None] <= off + torch.arange(
+        S, device=dev)[:, None]
+    pairs = attention_pairs(S, Skv, True, 0, off)
+    for name, cap, lib in [
+            ("flash_attention@chunk512", None,
+             lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                    attn_mask=mask)),
+            ("flash_attention@chunk512_softcap50", 50.0,
+             flex_softcap_call(q, k, v, off, 50.0))]:
+        launches[name] = launches["flash_attention"]
+        if cap:
+            check_close(f"{name}: flex_attention against the plain version",
+                        lib(), ref.flash_attention_ref(
+                            q, k, v, q_offset=off, softcap=cap),
+                        ATTN_TOL[bf])
+        row(name, "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
+            "src/repro/kernels/flash_attention.py:64",
+            lambda: flash_attention_tpu(q, k, v, q_offset=off, softcap=cap),
+            lambda: ref.flash_attention_ref(q, k, v, q_offset=off,
+                                            softcap=cap),
+            lib, 4 * 32 * pairs * 64,
+            2 * (2 * 32 * S * 64 + 2 * 4 * Skv * 64), PEAK_BF16,
+            ATTN_TOL[bf], f"q 1x32x{S}x64, kv 1x4x{Skv}x64 bf16, q_offset "
+            f"{off}" + (f", softcap {cap:g}" if cap else ""))
+    rows[-1]["library"] = ("flex_attention (torch.compile): tanh "
+                           "score_mod, offset causal block mask")
     # recurrentgemma-2b: the same run's shapes on the hybrid's attention
     # layers (2048-slot window ring, ring position 535; 512-token prefill
     # inside the 2048 window) and its RG-LRU prefill scan
@@ -3150,6 +3540,12 @@ def main() -> int:
     from repro_torch.runtime.device import resolve_device
     dev = resolve_device()
     t_start = time.perf_counter()
+    # phase 11 (e) needs the host's CPUs and no kernel: its gloo ranks run
+    # beside the build and phases 2-3, which time nothing, and phase 11
+    # reports them
+    from concurrent.futures import ThreadPoolExecutor
+    gloo_pool = ThreadPoolExecutor(1)
+    gloo = gloo_pool.submit(gloo_torch_cases)
     line = smi()
     card, power = [s.strip() for s in line.split(",", 1)]
     log(f"phase 1: {line}; torch {torch.__version__}, CUDA "
@@ -3218,7 +3614,8 @@ def main() -> int:
     RECORD["lockstep"] = phase_sim(dev)
     RECORD["campaign"] = phase_campaign(dev, RECORD["lockstep"]["full"][1])
     train_launches = phase_train(dev, card, power)
-    RECORD["sharding"] = phase_sharding(dev)
+    RECORD["sharding"] = phase_sharding(dev, gloo.result())
+    gloo_pool.shutdown()
     launches = {
         "decode_attention": dense_launches["decode_attention"],
         "flash_attention": dense_launches["flash_attention"],

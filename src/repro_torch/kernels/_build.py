@@ -3,8 +3,9 @@
 The sources under ``kernels/csrc/`` are compiled for ``sm_90a`` at first
 CUDA use into ``build/repro_torch_kernels/`` at the repository root,
 keyed by a hash of the sources and the flags, so a fresh checkout builds
-them with nothing but ``nvcc``.  One ``nvcc`` per source runs in
-parallel, then one link makes the shared library.  Importing this
+them with nothing but ``nvcc``.  One ``nvcc`` per object runs in
+parallel (a source in ``VARIANTS`` makes a second object with its extra
+flags), then one link makes the shared library.  Importing this
 module needs no ``nvcc``: the CPU tests import every module.
 
 Each C entry point returns ``cudaGetLastError()`` after its launches;
@@ -29,6 +30,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+# sources compiled a second time with these flags, into an object of their
+# own: the flash kernels' capped instantiations (softcap > 0)
+VARIANTS = {"flash_attention.cu": ("-DREPRO_FLASH_CAP=1",),
+            "flash_attention_mma.cu": ("-DREPRO_FLASH_CAP=1",)}
 
 # launches of each kernel wrapper; a wrapper adds one where it launches
 # its kernel and nowhere else (chip_smoke.py reads these)
@@ -57,16 +62,18 @@ _SIGNATURES = {
     "repro_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
                                _L, ctypes.c_float, _P],
-    # q, k, v, out, B, Hq, Hkv, S, Skv, dqk, dv, causal, window, q/k/v/o
-    # strides (b, h, s) each, scale, stream; _f32 is the FFMA kernel
-    # (flash_attention.cu), _bf16 the tensor-core one
+    # q, k, v, out, B, Hq, Hkv, S, Skv, dqk, dv, causal, window, q_offset,
+    # q/k/v/o strides (b, h, s) each, scale, softcap, stream; _f32 is the
+    # FFMA kernel (flash_attention.cu), _bf16 the tensor-core one
     # (flash_attention_mma.cu)
     "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                                  _L, _L, _L, ctypes.c_float, _P],
+                                  _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
+                                  _L, _L, _L, _L, ctypes.c_float,
+                                  ctypes.c_float, _P],
     "repro_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
-                                   _L, _L, _L, _L, _L, ctypes.c_float, _P],
+                                   _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+                                   _L, _L, _L, _L, _L, _L, ctypes.c_float,
+                                   ctypes.c_float, _P],
     # a, b, h0, out, B, S, D, channels, steps, stages, vec, stream (the
     # plan of rglru_scan.scan_plan)
     "repro_rglru_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -82,8 +89,17 @@ def _sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def _objects():
+    """(source, object stem, extra flags) of every object to compile."""
+    for src in sorted(CSRC.glob("*.cu")):
+        yield src, src.stem, ()
+        if src.name in VARIANTS:
+            yield src, src.stem + "_cap", VARIANTS[src.name]
+
+
 def _key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(VARIANTS.items())).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -121,19 +137,19 @@ def _build(lib_path: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
-        for src in sorted(CSRC.glob("*.cu")):
-            obj = Path(tmp) / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src),
-                   "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
+        for src, stem, extra in _objects():
+            obj = Path(tmp) / (stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-Xptxas", "-v", "-c",
+                   str(src), "-o", str(obj)]
+            procs.append((stem, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         failed = []
-        for src, _, p in procs:
+        for stem, _, p in procs:
             out, _ = p.communicate()
-            (Path(tmp) / (src.stem + ".log")).write_text(out)
+            (Path(tmp) / (stem + ".log")).write_text(out)
             if p.returncode != 0:
-                failed.append(f"{src.name}:\n{out}")
+                failed.append(f"{stem}:\n{out}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = Path(tmp) / lib_path.name
@@ -143,9 +159,9 @@ def _build(lib_path: Path) -> None:
             stderr=subprocess.STDOUT, text=True)
         if out.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + out.stdout)
-        for src, _, _ in procs:
-            shutil.copy(Path(tmp) / (src.stem + ".log"),
-                        lib_path.with_name(f"{lib_path.stem}.{src.stem}.log"))
+        for stem, _, _ in procs:
+            shutil.copy(Path(tmp) / (stem + ".log"),
+                        lib_path.with_name(f"{lib_path.stem}.{stem}.log"))
         os.replace(tmp_lib, lib_path)          # atomic for other builders
 
 
@@ -172,7 +188,7 @@ def lib() -> ctypes.CDLL:
 
 
 def ptxas_report() -> str:
-    """What ``-Xptxas -v`` said for each source of the current build."""
+    """What ``-Xptxas -v`` said for each object of the current build."""
     lib()
     stem = library_path().stem
     return "\n".join(p.read_text() for p in

@@ -1,7 +1,8 @@
 // Causal (or full) flash attention for Hopper (sm_90a) in fp32, the parity
 // path of the prefill, with an optional local window (the hybrid family's
-// banded attention).  bf16, the serving path, runs on the tensor-core
-// kernel in flash_attention_mma.cu.
+// banded attention), a query offset (chunked prefill) and a score cap.
+// bf16, the serving path, runs on the tensor-core kernel in
+// flash_attention_mma.cu.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_tpu
 // (_flash_kernel), and with a window the banded attention of
@@ -19,9 +20,13 @@
 // KV grid axis; here the KV loop runs inside the block).  It walks KV tiles
 // of BKV keys staged in shared memory, only up to its diagonal: KV tiles the
 // reference skips as fully masked (ki*bkv >= (qi+1)*bq) are never loaded.
-// With a window W > 0 a key k is live for query q when q - W < k <= q, and
-// KV tiles wholly below the band of the block's first row are skipped the
-// same way, so a banded pass costs O(S * W).  Per tile it applies the
+// Query row r sits at position q_offset + r (the reference's q_offset: a
+// later chunk of a prompt against the keys of all earlier ones).  With a
+// window W > 0 a key k is live for the query at position p when
+// p - W < k <= p, and KV tiles wholly below the band of the block's first
+// row are skipped the same way, so a banded pass costs O(S * W).  A
+// softcap c > 0 maps the scaled score s to c * tanh(s / c) before the mask
+// (the reference's order).  Per tile it applies the
 // reference's online softmax in fp32: mask, m_new,
 // p = exp(s - m_new) * (s > NEG_INF*0.5), corr = exp(m - m_new).  GQA maps
 // query head h to KV head h / G.  Every tensor goes in through its strides,
@@ -34,6 +39,24 @@
 // dh 256 acc[256] does not fit in registers and spills to local memory
 // (ptxas reports it); the parity path accepts that.
 #include "common.cuh"
+
+// The capped instantiations (softcap > 0) are an object of their own:
+// kernels/_build.py compiles this file a second time with
+// REPRO_FLASH_CAP=1, so that the uncapped kernels carry no tanhf and the
+// two halves compile side by side.
+#ifndef REPRO_FLASH_CAP
+#define REPRO_FLASH_CAP 0
+#endif
+
+namespace repro {
+// the capped instantiations' dispatch, defined where this file is built
+// with REPRO_FLASH_CAP=1
+int flash_f32_capped(int dqk, int dv, const void* q, const void* k,
+                     const void* v, void* o, int B, int Hq, int Hkv, int S,
+                     int Skv, int causal, int window, int q_offset,
+                     const i64* st, float scale, float softcap,
+                     cudaStream_t s);
+}  // namespace repro
 
 using namespace repro;
 
@@ -52,13 +75,13 @@ template <int DQK, int DV> struct Tile {
       sizeof(float) * ((size_t)BQ * (DQK + 1) + (size_t)BKV * (DQK + DV));
 };
 
-template <typename T, int DQK, int DV>
+template <typename T, int DQK, int DV, bool CAP>
 __global__ void __launch_bounds__(Tile<DQK, DV>::BQ)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
-             int S, int Skv, int causal, int window, i64 sqb, i64 sqh,
-             i64 sqs, i64 skb, i64 skh, i64 sks, i64 svb, i64 svh, i64 svs,
-             i64 sob, i64 soh, i64 sos, float scale) {
+             int S, int Skv, int causal, int window, int q_offset, i64 sqb,
+             i64 sqh, i64 sqs, i64 skb, i64 skh, i64 sks, i64 svb, i64 svh,
+             i64 svs, i64 sob, i64 soh, i64 sos, float scale, float softcap) {
   constexpr int BQ = Tile<DQK, DV>::BQ, BKV = Tile<DQK, DV>::BKV;
   extern __shared__ float smem[];
   float(*qs)[DQK + 1] = reinterpret_cast<float(*)[DQK + 1]>(smem);
@@ -69,7 +92,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.x;
   const int b = bh / Hq, hq = bh % Hq, hk = hq / (Hq / Hkv);
   const int q0 = blockIdx.y * BQ;
-  const int qpos = q0 + t;
+  const int qrow = q0 + t;
+  const int qpos = q_offset + qrow;  // the row's absolute position
 
   const T* qb = q + b * sqb + hq * sqh;
   for (int i = t; i < BQ * DQK; i += BQ) {
@@ -84,11 +108,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int d = 0; d < DV; ++d) acc[d] = 0.f;
 
-  // live keys: below (block's last row + 1) when causal, the reference's
-  // block-skipping rule with the block's own edge; with a window, from the
-  // first tile that reaches the band of the block's first row
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
+  // live keys: below (block's last position + 1) when causal, the
+  // reference's block-skipping rule with the block's own edge; with a
+  // window, from the first tile that reaches the band of the block's first
+  // row
+  const int p0 = q_offset + q0;
+  const int kv_end = causal ? min(Skv, p0 + BQ) : Skv;
+  const int kv_begin = window > 0 ? max(0, p0 - window + 1) / BKV * BKV : 0;
   for (int k0 = kv_begin; k0 < kv_end; k0 += BKV) {
     __syncthreads();
     for (int i = t; i < BKV * DQK; i += BQ) {
@@ -111,7 +137,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kp = k0 + j;
       const bool live = kp < Skv && (!causal || kp <= qpos) &&
                         (window <= 0 || kp > qpos - window);
-      s[j] = live ? dot * scale : NEG_INF;
+      float sc = dot * scale;
+      if (CAP) sc = softcap * tanhf(sc / softcap);
+      s[j] = live ? sc : NEG_INF;
       m_new = fmaxf(m_new, s[j]);
     }
     const float corr = expf(m - m_new);
@@ -133,39 +161,41 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m = m_new;
   }
 
-  if (qpos < S) {
-    T* ob = o + b * sob + hq * soh + qpos * sos;
+  if (qrow < S) {
+    T* ob = o + b * sob + hq * soh + qrow * sos;
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int d = 0; d < DV; ++d) ob[d] = from_float<T>(acc[d] * inv);
   }
 }
 
-template <typename T, int DQK, int DV>
+template <typename T, int DQK, int DV, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int S, int Skv, int causal, int window,
-           const i64* st, float scale, cudaStream_t s) {
+           int q_offset, const i64* st, float scale, float softcap,
+           cudaStream_t s) {
   constexpr int BQ = Tile<DQK, DV>::BQ;
   constexpr size_t smem = Tile<DQK, DV>::SMEM;
-  cudaError_t e = allow_smem(flash_kernel<T, DQK, DV>, smem);
+  cudaError_t e = allow_smem(flash_kernel<T, DQK, DV, CAP>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * Hq, (S + BQ - 1) / BQ);
-  flash_kernel<T, DQK, DV><<<grid, BQ, smem, s>>>(
+  flash_kernel<T, DQK, DV, CAP><<<grid, BQ, smem, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hkv, S, Skv, causal,
-      window, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale);
+      window, q_offset, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], st[9], st[10], st[11], scale, softcap);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CAP>
 int dispatch(int dqk, int dv, const void* q, const void* k, const void* v,
              void* o, int B, int Hq, int Hkv, int S, int Skv, int causal,
-             int window, const i64* st, float scale, cudaStream_t s) {
+             int window, int q_offset, const i64* st, float scale,
+             float softcap, cudaStream_t s) {
   // the (dqk, dv) pairs: kernels/flash_attention.py::HEAD_DIMS
 #define REPRO_FLASH_CASE(DQK, DV)                                           \
   if (dqk == DQK && dv == DV)                                               \
-    return launch<T, DQK, DV>(q, k, v, o, B, Hq, Hkv, S, Skv, causal, window, \
-                              st, scale, s);
+    return launch<T, DQK, DV, CAP>(q, k, v, o, B, Hq, Hkv, S, Skv, causal,   \
+                                   window, q_offset, st, scale, softcap, s);
   REPRO_FLASH_CASE(16, 16)
   REPRO_FLASH_CASE(32, 32)
   REPRO_FLASH_CASE(64, 64)
@@ -179,18 +209,38 @@ int dispatch(int dqk, int dv, const void* q, const void* k, const void* v,
 
 }  // namespace
 
+#if REPRO_FLASH_CAP
+int repro::flash_f32_capped(int dqk, int dv, const void* q, const void* k,
+                            const void* v, void* o, int B, int Hq, int Hkv,
+                            int S, int Skv, int causal, int window,
+                            int q_offset, const i64* st, float scale,
+                            float softcap, cudaStream_t s) {
+  return dispatch<float, true>(
+      dqk, dv, q, k, v, o, B, Hq, Hkv, S, Skv, causal, window, q_offset, st,
+      scale, softcap, s);
+}
+#else
 // fp32 only; (dqk, dv) one of the pairs of dispatch; window 0 means none,
-// > 0 needs causal.  Strides are in elements, (batch, head, sequence) for
-// q, k, v and o; the last dimension is contiguous.
+// > 0 needs causal; q_offset >= 0 is the position of q's first row;
+// softcap 0 means none.  Strides are in elements, (batch, head, sequence)
+// for q, k, v and o; the last dimension is contiguous.
 extern "C" int repro_flash_attention_f32(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
-    int Hkv, int S, int Skv, int dqk, int dv, int causal, int window, i64 sqb,
-    i64 sqh, i64 sqs, i64 skb, i64 skh, i64 sks, i64 svb, i64 svh, i64 svs,
-    i64 sob, i64 soh, i64 sos, float scale, void* stream) {
+    int Hkv, int S, int Skv, int dqk, int dv, int causal, int window,
+    int q_offset, i64 sqb, i64 sqh, i64 sqs, i64 skb, i64 skh, i64 sks,
+    i64 svb, i64 svh, i64 svs, i64 sob, i64 soh, i64 sos, float scale,
+    float softcap, void* stream) {
   const i64 st[12] = {sqb, sqh, sqs, skb, skh, sks,
                       svb, svh, svs, sob, soh, sos};
   cudaStream_t s = (cudaStream_t)stream;
-  if (window > 0 && !causal) return (int)cudaErrorInvalidValue;
-  return dispatch<float>(dqk, dv, q, k, v, o, B, Hq, Hkv, S, Skv, causal,
-                         window, st, scale, s);
+  if ((window > 0 && !causal) || q_offset < 0 || softcap < 0.f)
+    return (int)cudaErrorInvalidValue;
+  if (softcap > 0.f)
+    return repro::flash_f32_capped(dqk, dv, q, k, v, o, B, Hq, Hkv, S, Skv,
+                                   causal, window, q_offset, st, scale,
+                                   softcap, s);
+  return dispatch<float, false>(
+      dqk, dv, q, k, v, o, B, Hq, Hkv, S, Skv, causal, window, q_offset, st,
+      scale, softcap, s);
 }
+#endif

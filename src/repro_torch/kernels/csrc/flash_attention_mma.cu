@@ -1,5 +1,6 @@
 // Flash attention on Hopper's tensor cores (sm_90a), bf16: the prefill path
-// of both model families, with an optional local window.
+// of both model families, with an optional local window, a query offset
+// (chunked prefill) and a score cap.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_tpu
 // (_flash_kernel) for bf16, and with a window the banded attention of
@@ -37,8 +38,12 @@
 // off, which zero-fills them, and zero columns add nothing to Q.K^T.
 //
 // Semantics kept exactly from _flash_kernel: s = dot * scale with the scale
-// applied to the fp32 product; keys live where kp < Skv, kp <= q (causal)
-// and kp > q - window (window > 0); KV tiles wholly above the diagonal or
+// applied to the fp32 product, then s = softcap * tanh(s / softcap) where
+// softcap > 0 (the reference's jnp flash_attention, before the mask, with
+// tanh as tanh_fast; the kernel's exponentials take s as it is, so
+// nothing is folded ahead of the cap); query row r sits at position
+// q = q_offset + r; keys live where kp < Skv, kp <= q (causal) and
+// kp > q - window (window > 0); KV tiles wholly above the diagonal or
 // below the band are never loaded (and a warp skips a loaded tile that is
 // dead for all of its 16 rows, which leaves m, l and acc exactly as the
 // masked update would); p = exp(s - m_new) * (s > NEG_INF*0.5),
@@ -53,6 +58,24 @@
 // the hybrid's 10 heads x 512 rows to 80 blocks on 132 SMs, so at these
 // batch-1 shapes it buys rate that the latency-bound kernel cannot use.
 #include "common.cuh"
+
+// The capped instantiations (softcap > 0) are an object of their own:
+// kernels/_build.py compiles this file a second time with
+// REPRO_FLASH_CAP=1, so that the uncapped kernels carry no tanhf and the
+// two halves compile side by side.
+#ifndef REPRO_FLASH_CAP
+#define REPRO_FLASH_CAP 0
+#endif
+
+namespace repro {
+// the capped instantiations' dispatch, defined where this file is built
+// with REPRO_FLASH_CAP=1
+int flash_mma_capped(int dqk, int dv, const void* q, const void* k,
+                     const void* v, void* o, int B, int Hq, int Hkv, int S,
+                     int Skv, int causal, int window, int q_offset,
+                     const i64* st, float scale, float softcap,
+                     cudaStream_t s);
+}  // namespace repro
 
 using namespace repro;
 
@@ -129,13 +152,22 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&h);
 }
 
-template <int DQK, int DV>
+// tanh(y) as 1 - 2 / (exp(2y) + 1), saturating to +-1 where exp overflows
+// or vanishes: its absolute error (~1e-7) is what a capped score carries
+// into the softmax, and it keeps the capped kernels free of tanhf's
+// accurate slow path, which spilled at dh 64
+__device__ __forceinline__ float tanh_fast(float y) {
+  return 1.f - __fdividef(2.f, __expf(2.f * y) + 1.f);
+}
+
+template <int DQK, int DV, bool CAP>
 __global__ void __launch_bounds__(Cfg<DQK, DV>::THREADS)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int Hq,
-                 int Hkv, int S, int Skv, int causal, int window, i64 sqb,
-                 i64 sqh, i64 sqs, i64 skb, i64 skh, i64 sks, i64 svb,
-                 i64 svh, i64 svs, i64 sob, i64 soh, i64 sos, float scale) {
+                 int Hkv, int S, int Skv, int causal, int window,
+                 int q_offset, i64 sqb, i64 sqh, i64 sqs, i64 skb, i64 skh,
+                 i64 sks, i64 svb, i64 svh, i64 svs, i64 sob, i64 soh,
+                 i64 sos, float scale, float softcap) {
   using C = Cfg<DQK, DV>;
   constexpr int BQ = C::BQ, BKV = C::BKV, LDQ = C::LDQ, LDV = C::LDV;
   constexpr int CPRQ = C::CPRQ, CPRQP = C::CPRQP, CPRV = C::CPRV;
@@ -165,10 +197,12 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async16(smem_addr(qs + r * LDQ + c * 8),
                in ? qb + (i64)(q0 + r) * sqs + c * 8 : qb, in);
   }
-  // live keys: below (block's last row + 1) when causal; with a window,
-  // from the first tile that reaches the band of the block's first row
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BKV * BKV : 0;
+  // live keys: below (block's last position + 1) when causal; with a
+  // window, from the first tile that reaches the band of the block's first
+  // row.  Positions are q_offset + row.
+  const int p0 = q_offset + q0;
+  const int kv_end = causal ? min(Skv, p0 + BQ) : Skv;
+  const int kv_begin = window > 0 ? max(0, p0 - window + 1) / BKV * BKV : 0;
   const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV
                                         : 0;
   // one pass over the wider of a K row and a V row; the tests on c fold
@@ -198,10 +232,12 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  // this thread's two rows of each fragment: g and g + 8 of the warp's 16
+  // this thread's two rows of each fragment: g and g + 8 of the warp's 16;
+  // qw indexes the warp's first row, pw is its position
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   const int qw = q0 + warp * 16;
-  const int row[2] = {qw + (lane >> 2), qw + (lane >> 2) + 8};
+  const int pw = q_offset + qw;
+  const int pos[2] = {pw + (lane >> 2), pw + (lane >> 2) + 8};
   // ldmatrix row addresses: Q as the A operand (rows 0-15, k halves);
   // K as the B operand of QK^T (keys j..j+15, dh halves); V as the B
   // operand of PV, transposed (keys k halves, dh columns)
@@ -222,8 +258,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bool dead = (causal && k0 > qw + 15) ||
-                      (window > 0 && k0 + BKV - 1 <= qw - window);
+    const bool dead = (causal && k0 > pw + 15) ||
+                      (window > 0 && k0 + BKV - 1 <= pw - window);
     if (!dead) {
       const unsigned kst = smem_addr(ks + (t & 1) * BKV * LDQ + k_off);
       const unsigned vst = smem_addr(vs + (t & 1) * BKV * LDV + v_off);
@@ -252,10 +288,12 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kp = k0 + n * 8 + (lane & 3) * 2 + (e & 1);
-          const int qr = row[e >> 1];
-          const bool live = kp < Skv && (!causal || kp <= qr) &&
-                            (window <= 0 || kp > qr - window);
-          s[n][e] = live ? s[n][e] * scale : NEG_INF;
+          const int qp = pos[e >> 1];
+          const bool live = kp < Skv && (!causal || kp <= qp) &&
+                            (window <= 0 || kp > qp - window);
+          float sc = s[n][e] * scale;
+          if (CAP) sc = softcap * tanh_fast(__fdividef(sc, softcap));
+          s[n][e] = live ? sc : NEG_INF;
           mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
         }
       float corr[2];
@@ -332,41 +370,32 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int S, int Skv, int causal, int window,
-           const i64* st, float scale, cudaStream_t s) {
+           int q_offset, const i64* st, float scale, float softcap,
+           cudaStream_t s) {
   using C = Cfg<DQK, DV>;
-  cudaError_t e = allow_smem(flash_mma_kernel<DQK, DV>, C::SMEM);
+  cudaError_t e = allow_smem(flash_mma_kernel<DQK, DV, CAP>, C::SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * Hq, (S + C::BQ - 1) / C::BQ);
-  flash_mma_kernel<DQK, DV><<<grid, C::THREADS, C::SMEM, s>>>(
+  flash_mma_kernel<DQK, DV, CAP><<<grid, C::THREADS, C::SMEM, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, Hq, Hkv, S,
-      Skv, causal, window, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], scale);
+      Skv, causal, window, q_offset, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale, softcap);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// bf16 only; (dqk, dv) one of the pairs below; window 0 means none, > 0
-// needs causal.  Strides are in elements, (batch, head, sequence) for q, k,
-// v and o; the last dimension is contiguous, and every row starts 16-byte
-// aligned.
-extern "C" int repro_flash_attention_bf16(
-    const void* q, const void* k, const void* v, void* o, int B, int Hq,
-    int Hkv, int S, int Skv, int dqk, int dv, int causal, int window, i64 sqb,
-    i64 sqh, i64 sqs, i64 skb, i64 skh, i64 sks, i64 svb, i64 svh, i64 svs,
-    i64 sob, i64 soh, i64 sos, float scale, void* stream) {
-  const i64 st[12] = {sqb, sqh, sqs, skb, skh, sks,
-                      svb, svh, svs, sob, soh, sos};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (window > 0 && !causal) return (int)cudaErrorInvalidValue;
+template <bool CAP>
+int dispatch(int dqk, int dv, const void* q, const void* k, const void* v,
+             void* o, int B, int Hq, int Hkv, int S, int Skv, int causal,
+             int window, int q_offset, const i64* st, float scale,
+             float softcap, cudaStream_t s) {
   // the (dqk, dv) pairs: kernels/flash_attention.py::HEAD_DIMS
 #define REPRO_FLASH_MMA_CASE(DQK, DV)                                       \
   if (dqk == DQK && dv == DV)                                               \
-    return launch<DQK, DV>(q, k, v, o, B, Hq, Hkv, S, Skv, causal, window,  \
-                           st, scale, s);
+    return launch<DQK, DV, CAP>(q, k, v, o, B, Hq, Hkv, S, Skv, causal,      \
+                                window, q_offset, st, scale, softcap, s);
   REPRO_FLASH_MMA_CASE(16, 16)
   REPRO_FLASH_MMA_CASE(32, 32)
   REPRO_FLASH_MMA_CASE(64, 64)
@@ -377,3 +406,42 @@ extern "C" int repro_flash_attention_bf16(
 #undef REPRO_FLASH_MMA_CASE
   return (int)cudaErrorInvalidValue;
 }
+
+}  // namespace
+
+#if REPRO_FLASH_CAP
+int repro::flash_mma_capped(int dqk, int dv, const void* q, const void* k,
+                            const void* v, void* o, int B, int Hq, int Hkv,
+                            int S, int Skv, int causal, int window,
+                            int q_offset, const i64* st, float scale,
+                            float softcap, cudaStream_t s) {
+  return dispatch<true>(
+      dqk, dv, q, k, v, o, B, Hq, Hkv, S, Skv, causal, window, q_offset, st,
+      scale, softcap, s);
+}
+#else
+// bf16 only; (dqk, dv) one of the pairs of dispatch; window 0 means none,
+// > 0 needs causal; q_offset >= 0 is the position of q's first row;
+// softcap 0 means none.  Strides are in elements, (batch, head, sequence)
+// for q, k, v and o; the last dimension is contiguous, and every row
+// starts 16-byte aligned.
+extern "C" int repro_flash_attention_bf16(
+    const void* q, const void* k, const void* v, void* o, int B, int Hq,
+    int Hkv, int S, int Skv, int dqk, int dv, int causal, int window,
+    int q_offset, i64 sqb, i64 sqh, i64 sqs, i64 skb, i64 skh, i64 sks,
+    i64 svb, i64 svh, i64 svs, i64 sob, i64 soh, i64 sos, float scale,
+    float softcap, void* stream) {
+  const i64 st[12] = {sqb, sqh, sqs, skb, skh, sks,
+                      svb, svh, svs, sob, soh, sos};
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((window > 0 && !causal) || q_offset < 0 || softcap < 0.f)
+    return (int)cudaErrorInvalidValue;
+  if (softcap > 0.f)
+    return repro::flash_mma_capped(dqk, dv, q, k, v, o, B, Hq, Hkv, S, Skv,
+                                   causal, window, q_offset, st, scale,
+                                   softcap, s);
+  return dispatch<false>(
+      dqk, dv, q, k, v, o, B, Hq, Hkv, S, Skv, causal, window, q_offset, st,
+      scale, softcap, s);
+}
+#endif

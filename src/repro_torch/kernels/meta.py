@@ -20,34 +20,50 @@ def _meta_only(name: str):
     raise RuntimeError(f"repro_torch::{name} runs on the meta device only")
 
 
-def attention_pairs(S: int, Skv: int, causal: bool, window: int) -> int:
+def _tri(n: int) -> int:
+    return n * (n + 1) // 2 if n > 0 else 0
+
+
+def attention_pairs(S: int, Skv: int, causal: bool, window: int,
+                    q_offset: int = 0) -> int:
     """(query, key) pairs causal attention with an optional window
-    computes: query i sees keys max(0, i - window + 1) .. i."""
+    computes: the query at position p = q_offset + i sees keys
+    max(0, p - window + 1) .. min(p, Skv - 1)."""
     if not causal:
         return S * Skv
-    if window <= 0 or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
+    a, b = q_offset, q_offset + S - 1          # the queries' positions
+    if window > 0:
+        b = min(b, Skv + window - 2)    # later queries' bands hold no key
+    # sum over p of min(p + 1, Skv): p + 1 up to Skv - 1, then Skv
+    c = min(b, Skv - 1)
+    pairs = (_tri(c + 1) - _tri(a) if c >= a else 0) \
+        + Skv * max(0, b - max(a, Skv) + 1)
+    if window > 0:
+        # minus the keys below the band: sum over p of max(0, p - window + 1)
+        lo = max(a, window)
+        if b >= lo:
+            pairs -= _tri(b - window + 1) - _tri(lo - window)
+    return pairs
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool,
-                    window: int) -> Tensor:
+                    window: int, q_offset: int, softcap: float) -> Tensor:
     _meta_only("flash_attention")
 
 
 @flash_attention.register_fake
-def _(q, k, v, causal, window):
+def _(q, k, v, causal, window, q_offset, softcap):
     B, Hq, S, _ = q.shape
     # the kernel's (B,Hq,S,dv) view of a contiguous (B,S,Hq,dv) buffer
     return q.new_empty((B, S, Hq, v.shape[-1])).transpose(1, 2)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
-def _flash_flops(q_shape, k_shape, v_shape, causal, window, *args,
-                 out_shape=None, **kwargs) -> int:
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, q_offset,
+                 softcap, *args, out_shape=None, **kwargs) -> int:
     B, Hq, S, dqk = q_shape
-    pairs = attention_pairs(S, k_shape[2], causal, window)
+    pairs = attention_pairs(S, k_shape[2], causal, window, q_offset)
     return 2 * B * Hq * pairs * (dqk + v_shape[-1])
 
 

@@ -34,9 +34,9 @@ def gemm_resume(a, b, acc, k_begin, k_end, *, bk=256):
 
 
 def flash_attention(q, k, v, *, causal=True, block_q=512, block_kv=512,
-                    window=0):
+                    window=0, q_offset=0, softcap=None):
     kw = dict(causal=causal, block_q=block_q, block_kv=block_kv,
-              window=window)
+              window=window, q_offset=q_offset, softcap=softcap)
     if isinstance(q, DTensor):
         return sharding.attention_local(flash_attention_tpu, q, k, v, **kw)
     return flash_attention_tpu(q, k, v, **kw)

@@ -24,20 +24,28 @@ def gemm_partial_ref(a, b, acc, k_begin: int, k_end: int, bk: int):
     return acc + a_sl @ b_sl
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, softcap=None):
     """q (B,Hq,S,dqk), k (B,Hkv,Skv,dqk), v (B,Hkv,Skv,dv) -> (B,Hq,S,dv);
     the scale is dqk ** -0.5 (MLA's v head dim differs from its key's);
-    ``window`` > 0 keeps the keys k with q - window < k <= q."""
+    query i sits at position p = ``q_offset`` + i; causal keeps the keys
+    k <= p, and ``window`` > 0 those with p - window < k <= p;
+    ``softcap`` c maps each scaled score s to c * tanh(s / c) before the
+    mask."""
     B, Hq, S, dh = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     k = k.repeat_interleave(G, dim=1)
     v = v.repeat_interleave(G, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (dh ** -0.5)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     if causal:
-        mask = torch.ones(S, Skv, dtype=torch.bool, device=q.device).tril()
+        qpos = q_offset + torch.arange(S, device=q.device)[:, None]
+        kpos = torch.arange(Skv, device=q.device)[None, :]
+        mask = kpos <= qpos
         if window > 0:
-            mask = mask.triu(1 - window)
+            mask &= kpos > qpos - window
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())

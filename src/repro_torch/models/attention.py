@@ -4,11 +4,12 @@
 In the reference these are jnp functions and the Pallas kernels are
 drop-in replacements nobody calls.  Here the swap is made: on a CUDA
 tensor ``flash_attention`` and ``local_attention`` run the flash kernel
-(the latter with a window) and ``decode_attention`` the flash-decoding
-kernel; on a CPU tensor they run the kernels' plain versions.  MLA's
-prefill runs the flash kernel with a value head dim (128) below the key's
-(192); its weight-absorbed decode is PyTorch operations, as the reference's
-is jnp outside any Pallas kernel.
+(the latter with a window; both with the reference's ``q_offset``, and
+``flash_attention`` with its ``softcap``) and ``decode_attention`` the
+flash-decoding kernel; on a CPU tensor they run the kernels' plain
+versions.  MLA's prefill runs the flash kernel with a value head dim
+(128) below the key's (192); its weight-absorbed decode is PyTorch
+operations, as the reference's is jnp outside any Pallas kernel.
 
 Training differentiates the model, and the kernels have no backward: its
 forward runs ``blocked_attention`` and ``blocked_local_attention``,
@@ -24,7 +25,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
 from repro_torch.runtime import sharding
-from repro_torch.runtime.sharding import reshape
+from repro_torch.runtime.sharding import reshape, seq_matmul
 from repro_torch.models.common import (apply_rope, checkpoint, rmsnorm,
                                        rope_cos_sin)
 
@@ -40,34 +41,28 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
     """q (B,Sq,Hq,Dqk), k (B,Skv,Hkv,Dqk), v (B,Skv,Hkv,Dv) ->
     (B,Sq,Hq,Dv), scaled by Dqk ** -0.5.
 
-    No family's prefill passes ``q_offset`` or ``softcap``; the kernel has
-    neither, so both raise until a caller needs them.
+    ``q_offset`` is the absolute position of q[0] (for chunked prefill);
+    ``softcap`` c maps each scaled score s to c * tanh(s / c) before the
+    causal mask.
     """
-    if q_offset != 0 or softcap is not None:
-        raise NotImplementedError("q_offset and softcap are not ported "
-                                  "(no dense-family caller)")
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal,
-                            block_q=block_q, block_kv=block_kv)
+                            block_q=block_q, block_kv=block_kv,
+                            q_offset=q_offset, softcap=softcap)
     return o.transpose(1, 2)
 
 
 def local_attention(q, k, v, *, window: int, q_offset=0, block_q: int = 512):
     """Banded causal attention: each query attends the previous ``window``
     keys (inclusive of self).  q (B,Sq,Hq,Dh), k/v (B,Skv,Hkv,Dh) with
-    Skv == Sq -> (B,Sq,Hq,Dh).
-
-    The hybrid family's prefill never passes ``q_offset``; the kernel has
-    none, so it raises until a caller needs it.
+    Skv == q_offset + Sq (the usual prefill layout) -> (B,Sq,Hq,Dh).
     """
-    if q_offset != 0:
-        raise NotImplementedError("q_offset is not ported (no caller)")
-    Sq = q.shape[1]
+    Sq, Skv = q.shape[1], k.shape[1]
     bq = min(block_q, Sq)
     assert Sq % bq == 0
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=True, block_q=block_q,
-                            block_kv=block_q, window=window)
+                            block_kv=Skv, window=window, q_offset=q_offset)
     return o.transpose(1, 2)
 
 
@@ -217,9 +212,9 @@ def cache_update(cache, new, pos: int, use_dus: bool = False):
 def gqa_project_qkv(x, p, cfg, positions):
     """x (B,S,D) -> q (B,S,Hq,Dh), k,v (B,S,Hkv,Dh), RoPE applied."""
     dh = cfg.dh
-    q = torch.matmul(x, p["wq"].to(x.dtype))
-    k = torch.matmul(x, p["wk"].to(x.dtype))
-    v = torch.matmul(x, p["wv"].to(x.dtype))
+    q = seq_matmul(x, p["wq"].to(x.dtype))
+    k = seq_matmul(x, p["wk"].to(x.dtype))
+    v = seq_matmul(x, p["wv"].to(x.dtype))
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -248,12 +243,12 @@ def mla_prefill_qkv(x, p, cfg, positions):
     k_rope (B,S,dr).  The one rope key of a position is broadcast to
     every head."""
     m, H = cfg.mla, cfg.n_heads
-    ckv = torch.matmul(x, p["w_dkv"].to(x.dtype))
+    ckv = seq_matmul(x, p["w_dkv"].to(x.dtype))
     c, kr = torch.split(ckv, [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
     c = rmsnorm(c, p["c_norm"])
     cos, sin = _mla_rope(cfg, positions)
     kr = apply_rope(kr[:, :, None, :], cos, sin)[:, :, 0]
-    q = _split_heads(torch.matmul(x, p["w_q"].to(x.dtype)), H,
+    q = _split_heads(seq_matmul(x, p["w_q"].to(x.dtype)), H,
                      m.qk_nope_dim + m.qk_rope_dim)
     qn, qr = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     qr = apply_rope(qr, cos, sin)

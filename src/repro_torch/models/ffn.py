@@ -156,7 +156,8 @@ def moe_dispatch(x, p, cfg):
     y_e = y_e * slot_gate[..., None]
 
     # invert the sort: position of every (token, choice) inside its expert
-    inv = torch.empty_like(order).scatter_(1, order, ar.expand(R, -1))
+    inv = torch.scatter(torch.empty_like(order), 1, order,
+                        ar.expand(R, -1))
     slot_c2 = reshape(torch.gather(pos_in_e, 1, inv), (R, N, K))
     valid_tok = slot_c2 < C
     y_e = shard_activation(y_e, "moe_gathered", None)  # AG experts locally

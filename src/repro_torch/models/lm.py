@@ -76,8 +76,10 @@ from repro_torch.models.common import (DEFAULT_RC, RuntimeConfig, apply_norm,
                                        softmax_xent_sums)
 from repro_torch.pytree import tree_leaves
 from repro_torch.runtime.device import resolve_device
+from repro_torch.runtime import sharding
 from repro_torch.runtime.sharding import (cache_leaf, local_call, reshape,
-                                          shard_activation, whole_dim)
+                                          seq_matmul, shard_activation,
+                                          whole_dim)
 
 Params = Dict[str, Any]
 
@@ -449,7 +451,7 @@ def embed_inputs(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
 def lm_logits(cfg: ArchConfig, params: Params, h, rc: RuntimeConfig):
     h = apply_norm(cfg.norm, h, params["out_norm"])
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.matmul(h, w.to(h.dtype))
+    logits = seq_matmul(h, w.to(h.dtype))
     if cfg.family == "audio":
         logits = reshape(logits, logits.shape[:-1]
                          + (cfg.n_codebooks, cfg.vocab))
@@ -468,7 +470,8 @@ def _pad_heads(q, n_kv: int, multiple: int):
     g = g_pad = Hq // n_kv
     while (n_kv * g_pad) % multiple:
         g_pad += 1
-    qg = F.pad(reshape(q, (B, S, n_kv, g, dh)), (0, 0, 0, g_pad - g))
+    qg = sharding.pad(reshape(q, (B, S, n_kv, g, dh)),
+                      (0, 0, 0, g_pad - g))
     return qg.reshape(B, S, n_kv * g_pad, dh), g, g_pad
 
 
@@ -554,8 +557,8 @@ def _rglru_full(cfg, rc, h, p, *, train=False):
     """Returns (h, (h_last fp32, conv_state)); ``train`` runs the
     associative scan instead of the scan kernel."""
     x = apply_norm(cfg.norm, h, p["ln"])
-    y = ffn_lib.gelu(torch.matmul(x, p["w_y"].to(x.dtype)))
-    xb = torch.matmul(x, p["w_xb"].to(x.dtype))
+    y = ffn_lib.gelu(seq_matmul(x, p["w_y"].to(x.dtype)))
+    xb = seq_matmul(x, p["w_xb"].to(x.dtype))
     xb, conv_state = rec_lib.causal_conv1d(xb, p["conv_w"], p["conv_b"])
     scan = rec_lib.rglru_assoc_scan if train else rec_lib.rglru_scan
     rec, h_last = scan(xb, p, cfg.n_heads)
@@ -567,7 +570,7 @@ def _mlstm_qkv(cfg, p, x, conv=None):
     """x (B,S,D) -> q, k, v (B,S,H,dh), log_i / log_f (B,S,H) fp32, the
     output gate z (B,S,inner) and the conv state (B,3,inner); ``conv`` is
     the decode step's state.  v is the up-projection before the conv."""
-    u, z = torch.chunk(torch.matmul(x, p["w_up"].to(x.dtype)), 2, dim=-1)
+    u, z = torch.chunk(seq_matmul(x, p["w_up"].to(x.dtype)), 2, dim=-1)
     uc, conv_state = rec_lib.causal_conv1d(u, p["conv_w"], p["conv_b"],
                                            state=conv)
     uc = F.silu(uc)
@@ -652,10 +655,12 @@ _SLSTM_KEYS = ("sc", "sn", "sh", "sm")
 
 def _window_cache(x, W: int):
     """The prefill's (B,S,...) keys or values as a W-slot ring: position
-    t in slot t % W; padded with zeros when S < W."""
+    t in slot t % W; padded with zeros when S < W.  The roll is two
+    slices (torch 2.11's DTensor has no strategy for ``aten.roll``)."""
     S = x.shape[1]
     if S >= W:
-        return torch.roll(x[:, -W:], S % W, dims=1)
+        last, r = x[:, -W:], S % W
+        return torch.cat([last[:, W - r:], last[:, :W - r]], dim=1)
     pad = torch.zeros((x.shape[0], W - S) + x.shape[2:], dtype=x.dtype,
                       device=x.device)
     return torch.cat([x, pad], dim=1)
@@ -810,7 +815,7 @@ def chunked_xent(cfg: ArchConfig, params: Params, h, labels,
     chunk = LOSS_CHUNK if S % LOSS_CHUNK == 0 else S
 
     def body(hc, lc):
-        logits = torch.matmul(hc, w.to(hc.dtype))
+        logits = seq_matmul(hc, w.to(hc.dtype))
         if cfg.family == "audio":
             logits = reshape(logits, logits.shape[:-1]
                              + (cfg.n_codebooks, cfg.vocab))
@@ -924,7 +929,7 @@ def _put(leaf, i: int, t) -> None:
     a cache sharded on T would write each shard's own slice."""
     pad = leaf.shape[2] - t.shape[1]
     if pad:
-        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        t = sharding.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
     leaf[i] = t
 
 

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.runtime.sharding import reshape
+from repro_torch.runtime.sharding import pad, reshape, seq_matmul
 
 SQRT_EPS = 1e-8
 RGLRU_C = 8.0
@@ -125,7 +125,7 @@ def causal_conv1d(x, w, b, state=None):
     decode.  Returns (y, new_state)."""
     W = w.shape[0]
     if state is None:
-        xp = torch.nn.functional.pad(x, (0, 0, W - 1, 0))
+        xp = pad(x, (0, 0, W - 1, 0))
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
     y = sum(xp[:, i:i + x.shape[1]] * w[i].to(x.dtype) for i in range(W))
@@ -279,7 +279,7 @@ def slstm_seq(x, p, n_heads, state=None):
     if state is None:
         zeros = torch.zeros((B, D), dtype=torch.float32, device=x.device)
         state = (zeros, zeros, zeros, zeros - 10.0)
-    pre_x = torch.einsum("bsd,de->bse", x.float(), wx) + b
+    pre_x = seq_matmul(x.float(), wx) + b
     c, n, h, m = state
     ys = []
     for t in range(S):

@@ -293,6 +293,119 @@ def whole_dim(x, dim: int):
     return x.redistribute(x.device_mesh, place)
 
 
+def _seq_dims(x):
+    """(mesh dim that shards S, mesh dims that shard B) of a sequence-
+    parallel activation x (B, S, ...), or None unless S is sharded on one
+    mesh dim, B only on mesh dims before it, and nothing else sharded."""
+    place = list(x.placements)
+    s_dims = [m for m, p in enumerate(place) if p == Shard(1)]
+    b_dims = [m for m, p in enumerate(place) if p == Shard(0)]
+    if len(s_dims) != 1 or any(m > s_dims[0] for m in b_dims) or \
+            len(s_dims) + len(b_dims) + place.count(Replicate()) != len(place):
+        return None
+    return s_dims[0], b_dims
+
+
+def _seq_gather(x):
+    """The rows (B*S, ...) of a sequence-parallel x (B, S, ...) with S
+    gathered: one all-gather of the local rows along their first dim,
+    then the rows put in (b, s) order by an index, as torch 2.13's
+    DTensor gathers the strided shard its (B, S) flatten gives (2.11
+    refuses that flatten, and its redistribution planner the strided
+    placement).  No S chunks are concatenated."""
+    import torch.distributed._functional_collectives as funcol
+    m, _ = _seq_dims(x)
+    mesh, n = x.device_mesh, x.device_mesh.size(m)
+    local = x.to_local()
+    b, s = local.shape[0], local.shape[1]
+    rows = local.reshape((b * s,) + tuple(local.shape[2:]))
+    # all_gather_tensor's newer name, where the torch has it
+    gather = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
+    rows = gather(rows.contiguous(), 0, (mesh, m))
+    idx = (torch.arange(b, device=local.device)[:, None, None] * s
+           + torch.arange(n, device=local.device)[None, :, None] * (b * s)
+           + torch.arange(s, device=local.device)[None, None, :])
+    rows = torch.index_select(rows, 0, idx.reshape(-1))
+    place = list(x.placements)
+    place[m] = Replicate()
+    shape = (x.shape[0] * x.shape[1],) + tuple(x.shape[2:])
+    return DTensor.from_local(rows, mesh, place, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_global_stride(rows, shape))
+
+
+class _SeqMatmul(torch.autograd.Function):
+    """x (B, S, D) sequence-parallel @ w: the product runs on x's rows
+    with S gathered (``_seq_gather``), and autograd keeps x's shard, not
+    the gathered rows: the weight's gradient gathers them again and x's
+    gradient leaves as a reduce-scatter into x's placements (Megatron-SP's
+    boundary, and what DTensor's own product keeps under torch 2.13)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        out = torch.matmul(_seq_gather(x), w)
+        out = out.view(x.shape[0], x.shape[1], *out.shape[1:])
+        # the gradient's placements: the output's, a partial sum's
+        # replicated (the gradient of a sum is each term's)
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in out.placements)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        B, S = g.shape[0], g.shape[1]
+        if tuple(g.placements) != tuple(ctx.placements):
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        g = _contiguous_shards(g).reshape((B * S,) + tuple(g.shape[2:]))
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.matmul(g, w.transpose(0, 1)).view(x.shape)
+            gx = gx.redistribute(x.device_mesh, x.placements)
+        if ctx.needs_input_grad[1]:
+            gw = torch.matmul(_seq_gather(x).transpose(0, 1), g)
+            gw = gw.redistribute(w.device_mesh, w.placements)
+        return gx, gw
+
+
+def seq_matmul(x, w):
+    """``torch.matmul(x, w)`` for an activation x (B, S, D) that may be
+    sequence-parallel: the Megatron-SP entry boundary of every product
+    that takes the residual.  Where S is sharded (``_seq_dims``) the
+    product runs on the rows with S gathered (``_SeqMatmul``), as
+    DTensor's own product does under torch 2.13 by flattening (B, S)
+    into a strided shard, a flatten that torch 2.11 refuses.  Its
+    backward keeps the output's gradient in the output's placements,
+    where 2.13's could gather it.  A w replicated on the mesh dim of S
+    is gathered for too, where 2.13 would multiply the shards; no product
+    of the dry-run cells has one.  Anything else is ``torch.matmul``'s."""
+    if isinstance(x, DTensor) and isinstance(w, DTensor) and \
+            _seq_dims(x) is not None:
+        return _SeqMatmul.apply(x, w)
+    return torch.matmul(x, w)
+
+
+def pad(x, pad):
+    """``F.pad(x, pad)`` with zeros.  A DTensor is padded on each rank's
+    shards, any sharded dim the pad widens gathered first, and keeps its
+    placements: torch 2.11's DTensor fails redistributing a pad's input
+    (an ``IndexError`` in its transform planner), and 2.13's pads the
+    shards itself where the widened dims are whole."""
+    if not isinstance(x, DTensor):
+        return torch.nn.functional.pad(x, pad)
+    for i in range(0, len(pad), 2):
+        if pad[i] or pad[i + 1]:
+            x = whole_dim(x, x.ndim - 1 - i // 2)
+    local = torch.nn.functional.pad(x.to_local(), pad)
+    shape = list(x.shape)
+    for i in range(0, len(pad), 2):
+        shape[x.ndim - 1 - i // 2] += pad[i] + pad[i + 1]
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_global_stride(local, shape))
+
+
 def _view_groups(src, dst):
     """Pair the dims of a reshape from ``src`` to ``dst`` (no -1): a list
     of (input dims, output dims) whose sizes multiply out equal."""

@@ -305,6 +305,40 @@ def test_flash_mla_head_dims_inside_a_nan_frame(gen, dqk, dv, S, dtype, tol):
     assert _err(out, ref.flash_attention_ref(q, k, v)) <= tol
 
 
+@pytest.mark.parametrize("q_offset,softcap,window",
+                         [(156, None, 0), (0, 5.0, 0), (156, 5.0, 0),
+                          (156, None, 64)])
+@pytest.mark.parametrize("dqk,dv", HEAD_DIMS)
+@pytest.mark.parametrize("dtype,tol,rtol", [(torch.float32, 5e-5, 0.0),
+                                            (torch.bfloat16, BF16_TOL,
+                                             2 ** -7)])
+def test_flash_q_offset_and_softcap_every_head_dim(gen, dqk, dv, q_offset,
+                                                   softcap, window, dtype,
+                                                   tol, rtol):
+    """A ragged 100-query chunk at ``q_offset`` against Skv = q_offset +
+    100 keys (GQA 8/2), with a cap that bites (q scaled by 4: scaled
+    scores of std ~4 against a cap of 5) and a window across the chunk's
+    start; the key and value buffers hold NaN rows past Skv, which the
+    kernels must not read.  The sharp softmax gives outputs up to the
+    values' extremes, so bf16 is held to BF16_TOL plus 2^-7 (the most one
+    bf16 ulp is of the value it rounds) of the largest output."""
+    S, Skv = 100, q_offset + 100
+    q = (4 * _randn(gen, 1, S, 8, dqk)).to(dtype).transpose(1, 2)
+    kv = []
+    for d in (dqk, dv):
+        buf = torch.full((1, Skv + 16, 2, d), float("nan"), device="cuda",
+                         dtype=dtype)
+        buf[:, :Skv] = _randn(gen, 1, Skv, 2, d, dtype=dtype)
+        kv.append(buf[:, :Skv].transpose(1, 2))
+    out = flash_attention_tpu(q, *kv, q_offset=q_offset, softcap=softcap,
+                              window=window, block_q=S, block_kv=Skv)
+    assert out.dtype == dtype and out.shape == (1, 8, S, dv)
+    assert bool(torch.isfinite(out).all())
+    want = ref.flash_attention_ref(q, *kv, q_offset=q_offset,
+                                   softcap=softcap, window=window)
+    assert _err(out, want) <= tol + rtol * float(want.float().abs().max())
+
+
 def test_flash_refuses_a_pair_it_does_not_instantiate(gen):
     q = _randn(gen, 1, 2, 8, 64).transpose(1, 2)
     with pytest.raises(ValueError):

@@ -28,11 +28,6 @@ JAX 0.9 has no ``jax.experimental.enable_x64``, which the reference
 engine imports; the ``x64`` fixture points it at ``jax.enable_x64`` for
 these tests only.
 """
-import json
-import os
-import socket
-import subprocess
-import sys
 import types
 
 import jax
@@ -347,89 +342,13 @@ def test_placements_of_a_spec():
 # real collectives: four gloo ranks on a (2, 2) mesh
 # ----------------------------------------------------------------------
 
-GLOO_ARCHS = ("tinyllama-1.1b-smoke", "deepseek-v2-lite-16b-smoke",
-              "recurrentgemma-2b-smoke")
+# the rank program (prefill and four decode steps, sharded against
+# unsharded) is chip_smoke.GLOO_SERVE_RANK: the card machine's smoke run
+# (phase 11 (e)) runs the same program under its own torch
 
 
-# one rank's program: the unsharded steps, then the same steps on DTensors
-# under axis_rules; prints the max logit error of the prefill and of each
-# decode step as JSON
-_GLOO_RANK = """
-import json, sys
-import numpy as np
-import torch
-import torch.distributed as dist
-from torch.distributed.tensor.experimental import implicit_replication
-from repro_torch import configs
-from repro_torch.launch.mesh import make_debug_mesh
-from repro_torch.models import lm
-from repro_torch.models.common import RuntimeConfig
-from repro_torch.runtime import sharding
-
-arch, port, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
-torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                        rank=rank, world_size=4)
-cfg = configs.get_config(arch)
-rc = RuntimeConfig(compute_dtype=torch.float32, param_dtype=torch.float32,
-                   sequence_parallel=True)
-params = lm.init_params(cfg, torch.Generator().manual_seed(0), rc, "cpu")
-toks = torch.from_numpy(np.random.default_rng(0).integers(
-    0, cfg.vocab, (4, 16)))
-want, cache = lm.prefill(cfg, params, {"tokens": toks}, rc, max_len=32)
-wants, nxt = [want], toks[:, -1]
-for _ in range(4):
-    logits, cache = lm.decode_step(cfg, params, nxt, cache, rc)
-    wants.append(logits)
-    nxt = logits.argmax(-1)
-mesh = make_debug_mesh(2, 2)
-rules = sharding.AxisRules(mesh, sequence_parallel=True)
-dparams = sharding.distribute(params, sharding.param_specs(params, rules),
-                              mesh)
-
-
-def batch(t):
-    return sharding.distribute(
-        {"t": t}, sharding.batch_specs({"t": t}, rules), mesh)["t"]
-
-
-errs = []
-with sharding.axis_rules(rules), implicit_replication():
-    got, cache = lm.prefill(cfg, dparams, {"tokens": batch(toks)}, rc,
-                            max_len=32)
-    errs.append(float((got.full_tensor() - wants[0]).abs().max()))
-    nxt = toks[:, -1]
-    for i in range(4):
-        got, cache = lm.decode_step(cfg, dparams, batch(nxt), cache, rc)
-        errs.append(float((got.full_tensor() - wants[i + 1]).abs().max()))
-        nxt = wants[i + 1].argmax(-1)
-dist.destroy_process_group()
-print(json.dumps(errs))
-"""
-
-
-@pytest.mark.parametrize("arch", GLOO_ARCHS)
+@pytest.mark.parametrize("arch", chip_smoke.GLOO_SERVE_ARCHS)
 def test_sharded_steps_on_four_gloo_ranks_match_the_unsharded_port(arch):
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=os.path.join(root, "src"))
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _GLOO_RANK, arch, str(port), str(r)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(4)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=120))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, (r, err[-2000:])
-        errs = json.loads(out.strip().splitlines()[-1])
+    ranks = chip_smoke.run_gloo(chip_smoke.GLOO_SERVE_RANK, (arch,))
+    for r, errs in enumerate(ranks):
         assert len(errs) == 5 and max(errs) <= 1e-5, (r, errs)

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro import configs as j_configs
 from repro.launch import specs as j_specs
@@ -345,6 +346,90 @@ def test_analysis_counts_known_redistributions_on_a_fake_4_rank_mesh():
         rs = m.result()["collectives"]["reduce-scatter"]
         assert rs["count"] == 1 and rs["out_bytes"] == full / 4
         assert rs["link_bytes"] == 3 * full / 4
+
+
+class _OpNames(TorchDispatchMode):
+    """Collects the names of the local operations run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        self.names.add(func._overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def test_seq_matmul_gathers_s_once_and_keeps_only_the_shard():
+    """A sequence-parallel product on a fake 2x4 mesh: the gathered rows
+    hold B's shard and all of S, the forward gathers S with one
+    all-gather and concatenates no S chunks, autograd saves nothing of
+    the gathered rows' size, and the backward gathers once more and
+    reduce-scatters x's gradient."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    B, S, D, N = 4, 32, 16, 8
+    with dryrun.fake_mesh((2, 4), ("data", "model")) as mesh:
+        x = DTensor.from_local(
+            torch.empty(B // 2, S // 4, D, device="meta", requires_grad=True),
+            mesh, [Shard(0), Shard(1)], run_check=False)
+        w = DTensor.from_local(
+            torch.empty(D, N // 4, device="meta", requires_grad=True),
+            mesh, [Replicate(), Shard(1)], run_check=False)
+        rows = sharding._seq_gather(x)
+        assert rows.placements == (Shard(0), Replicate())
+        assert tuple(rows.shape) == (B * S, D)
+        assert tuple(rows.to_local().shape) == (B // 2 * S, D)
+        saved = []
+        gathered = B // 2 * S * D
+        def keep(t):                           # a shard's elements
+            saved.append((t.to_local() if isinstance(t, DTensor)
+                          else t).numel())
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(keep, lambda t: t):
+            with OpStream() as fwd, _OpNames() as ops:
+                out = sharding.seq_matmul(x, w)
+        assert tuple(out.shape) == (B, S, N)
+        assert out.placements == (Shard(0), Shard(2))
+        coll = fwd.result()["collectives"]
+        assert set(coll) == {"all-gather"} and coll["all-gather"]["count"] \
+            == 1 and coll["all-gather"]["out_bytes"] == 4 * gathered
+        assert "cat" not in ops.names and "index_select" in ops.names
+        assert saved and max(saved) < gathered
+        with OpStream() as bwd:
+            gx, gw = torch.autograd.grad(out, (x, w), torch.ones_like(out))
+        coll = bwd.result()["collectives"]
+        assert coll["all-gather"]["count"] == 1
+        assert coll["reduce-scatter"]["count"] == 1
+        assert gx.placements == x.placements and gx.shape == x.shape
+        assert gw.placements == w.placements and gw.shape == w.shape
+
+
+@pytest.mark.parametrize("S,Skv,window,q_offset", [
+    (512, 1024, 0, 512), (64, 200, 0, 136), (48, 100, 16, 52),
+    (512, 1024, 2048, 512), (8, 40, 0, 0), (16, 8, 4, 0)])
+def test_meta_flash_flops_of_an_offset_block_count_the_live_pairs(
+        S, Skv, window, q_offset):
+    """The flop formula of a flash call whose queries sit at positions
+    q_offset .. q_offset + S - 1 (chunked prefill) against the (query,
+    key) pairs counted one by one: key j is live for the query at p where
+    j <= p and, with a window, j > p - window."""
+    p = q_offset + torch.arange(S)[:, None]
+    j = torch.arange(Skv)[None, :]
+    live = (j <= p) & ((j > p - window) if window else True)
+    pairs = int(live.sum())
+    assert meta.attention_pairs(S, Skv, True, window, q_offset) == pairs
+    m = lambda *shape: torch.empty(shape, dtype=torch.bfloat16,
+                                   device="meta")
+    with OpStream() as mode:
+        o = ops.flash_attention(m(1, 4, S, 32), m(1, 2, Skv, 32),
+                                m(1, 2, Skv, 16), window=window,
+                                q_offset=q_offset, softcap=50.0,
+                                block_q=S, block_kv=Skv)
+    assert tuple(o.shape) == (1, 4, S, 16)
+    assert mode.flops == 2 * 4 * pairs * (32 + 16)
 
 
 def test_meta_kernels_give_the_kernels_layouts_and_flops():

@@ -123,6 +123,36 @@ def test_flash_attention_with_a_narrower_value_head(B, H, S, dqk, dv):
         jq, jk, jv)), atol=5e-5)
 
 
+@pytest.mark.parametrize("q_offset,softcap,window", [
+    (0, 5.0, 0), (24, None, 0), (24, 5.0, 0), (24, None, 8), (40, None, 64)])
+def test_flash_plain_version_options_match_the_blocked_twins(
+        q_offset, softcap, window):
+    """``flash_attention_ref``'s ``q_offset``, ``softcap`` and window +
+    ``q_offset`` (a 16-query chunk against Skv = q_offset + 16 keys, GQA
+    4/2, q scaled by 4 so the cap of 5 bites) against the port's
+    differentiable twins of the reference's jnp functions,
+    ``blocked_attention`` and ``blocked_local_attention`` (held against
+    the reference in tests/test_torch_train.py).  fp32 on both sides,
+    tolerance 1e-5 as there."""
+    from repro_torch.models import attention
+    Sq, Skv = 16, q_offset + 16
+    q = torch.from_numpy(4 * _normal((2, Sq, 4, 16), 0))
+    k = torch.from_numpy(_normal((2, Skv, 2, 16), 1))
+    v = torch.from_numpy(_normal((2, Skv, 2, 16), 2))
+    got = tref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), window=window,
+                                   q_offset=q_offset, softcap=softcap)
+    if window:
+        want = attention.blocked_local_attention(
+            q, k, v, window=window, q_offset=q_offset, block_q=8)
+    else:
+        want = attention.blocked_attention(q, k, v, q_offset=q_offset,
+                                           softcap=softcap, block_q=8,
+                                           block_kv=8)
+    np.testing.assert_allclose(_np(got.transpose(1, 2)), _np(want),
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("pos", [0, 17, 255])
 @pytest.mark.parametrize("B,Hq,Hkv,S,dh", [(2, 8, 2, 256, 64),
                                            (1, 4, 4, 512, 32)])

@@ -141,12 +141,26 @@ def test_flash_attention_matches_jnp(S, Hq, Hkv):
     _close(out, want)
 
 
-def test_flash_attention_refuses_unported_options():
-    q = torch.zeros((1, 4, 2, 16))
-    with pytest.raises(NotImplementedError):
-        attention.flash_attention(q, q, q, q_offset=2)
-    with pytest.raises(NotImplementedError):
-        attention.flash_attention(q, q, q, softcap=30.0)
+@pytest.mark.parametrize("Hq,Hkv", [(4, 2), (4, 4)])
+@pytest.mark.parametrize("softcap", [None, 5.0])
+@pytest.mark.parametrize("q_offset", [0, 8, 24])
+def test_flash_attention_q_offset_and_softcap_match_jnp(q_offset, softcap,
+                                                        Hq, Hkv):
+    """A 16-query chunk at position ``q_offset`` against Skv = q_offset +
+    16 keys (chunked prefill), with and without a cap; q is scaled by 4 so
+    the scores (std ~4) reach the cap of 5.  Tolerance ATOL (fp32 on both
+    sides, sums in other orders)."""
+    Sq, Skv = 16, q_offset + 16
+    q = 4 * _normal((2, Sq, Hq, 16), 8)
+    k, v = _normal((2, Skv, Hkv, 16), 9), _normal((2, Skv, Hkv, 16), 10)
+    out = attention.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        q_offset=q_offset, softcap=softcap)
+    want = j_attn.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), q_offset=q_offset,
+                                  softcap=softcap)
+    assert out.shape == (2, Sq, Hq, 16)
+    _close(out, want)
 
 
 @pytest.mark.parametrize("pos", [0, 5, 31])

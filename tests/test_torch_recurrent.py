@@ -166,9 +166,24 @@ def test_flash_window_plain_version_matches_local_attention():
                                       for t in (q, k, v))), atol=0)
 
 
-def test_local_attention_refuses_unported_options():
-    q = torch.zeros((1, 4, 2, 16))
-    with pytest.raises(NotImplementedError):
-        attention.local_attention(q, q, q, window=2, q_offset=4)
+@pytest.mark.parametrize("q_offset", [4, 24])
+def test_local_attention_q_offset_matches_jnp_and_a_window_needs_causal(
+        q_offset):
+    """A 16-query chunk at position ``q_offset`` against Skv = q_offset +
+    16 keys, a window of 8 (the band reaches back past the chunk's
+    start), query blocks of 8; tolerance ATOL.  A window without causal
+    attention is refused."""
+    Sq, Skv = 16, q_offset + 16
+    q = _normal((2, Sq, 4, 16), 30)
+    k, v = _normal((2, Skv, 2, 16), 31), _normal((2, Skv, 2, 16), 32)
+    out = attention.local_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        window=8, q_offset=q_offset, block_q=8)
+    want = j_attn.local_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), window=8,
+                                  q_offset=q_offset, block_q=8)
+    assert out.shape == (2, Sq, 4, 16)
+    _close(out, want)
+    z = torch.zeros((1, 4, 2, 16))
     with pytest.raises(ValueError):
-        flash_attention_tpu(q, q, q, causal=False, window=2)
+        flash_attention_tpu(z, z, z, causal=False, window=2)

@@ -47,137 +47,31 @@ so an element whose gradient is eps-sized (eps 1e-8) moves by
 lr * eps * |dg| / (min |g| + eps)^2 for a gradient gap dg.
 """
 import json
-import os
-import socket
-import subprocess
-import sys
 
 import pytest
 import torch
 import torch.nn.functional as F
 
+import chip_smoke
 from repro_torch.launch import dryrun
 from repro_torch.models.common import log_sigmoid
 from repro_torch.runtime import sharding
 
 TOL = 1e-5
 
-# (arch, cut): the cut as keyword arguments of dataclasses.replace, a
-# dict value replacing fields of that sub-config
-CASES = [
-    ("tinyllama-1.1b-smoke", {}),
-    ("recurrentgemma-2b-smoke", {}),
-    ("xlstm-125m-smoke", {}),
-    ("llama4-maverick-400b-a17b-smoke", {}),
-    ("xlstm-125m-smoke", {"n_heads": 3, "n_kv_heads": 3, "d_model": 48,
-                          "xlstm": {"chunk": 8}}),
-    ("recurrentgemma-2b-smoke", {"n_heads": 3, "rglru": {"d_rnn": 48}}),
-    ("llama4-maverick-400b-a17b-smoke", {"moe": {"d_expert": 256}}),
-]
-
-# one rank's program: the plain step, then the same step on DTensors
-# under axis_rules; prints the comparison as JSON
-_RANK = """
-import dataclasses, json, sys
-import torch
-import torch.distributed as dist
-from torch.distributed.tensor.experimental import implicit_replication
-from repro_torch import configs
-from repro_torch.data import batch_for_arch
-from repro_torch.launch.mesh import make_debug_mesh
-from repro_torch.models.common import RuntimeConfig
-from repro_torch.optim import OptConfig
-from repro_torch.pytree import tree_items
-from repro_torch.runtime import sharding
-from repro_torch.runtime.trainer import init_train_state, make_train_step
-
-arch, port, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
-cut = json.loads(sys.argv[4])
-torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                        rank=rank, world_size=4)
-cfg = configs.get_config(arch)
-cfg = dataclasses.replace(cfg, **{
-    k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
-    else v for k, v in cut.items()})
-rc = RuntimeConfig(compute_dtype=torch.float32, param_dtype=torch.float32,
-                   remat_policy="full", sequence_parallel=True)
-opt_cfg = OptConfig(lr=3e-3, warmup_steps=2, decay_steps=10,
-                    moment_dtype=torch.float32)
-params, opt = init_train_state(cfg, torch.Generator().manual_seed(0), rc,
-                               opt_cfg, device="cpu")
-batch = {k: torch.from_numpy(v)
-         for k, v in batch_for_arch(cfg, 16, 4, 0).items()}
-step = make_train_step(cfg, rc, opt_cfg)
-want_p, want_o, want_m = step(params, opt, batch)
-
-mesh = make_debug_mesh(2, 2)
-rules = sharding.AxisRules(mesh, sequence_parallel=True)
-p_spec = sharding.param_specs(params, rules)
-o_spec = {k: p_spec if k in ("m", "v") else sharding.replicated(v, rules)
-          for k, v in opt.items()}
-args = (sharding.distribute(params, p_spec, mesh),
-        sharding.distribute(opt, o_spec, mesh),
-        sharding.distribute(batch, sharding.batch_specs(batch, rules), mesh))
-with sharding.axis_rules(rules), implicit_replication():
-    got_p, got_o, got_m = step(*args)
-
-
-def full(t):
-    return t.full_tensor() if hasattr(t, "full_tensor") else t
-
-
-lr, eps, b1 = float(want_m["lr"]), opt_cfg.eps, opt_cfg.b1
-got_p, got_g = dict(tree_items(got_p)), dict(tree_items(got_o["m"]))
-want_g = dict(tree_items(want_o["m"]))
-leaves = {}
-for path, w in tree_items(want_p):
-    gw, gg = want_g[path] / (1 - b1), full(got_g[path]) / (1 - b1)
-    dg = (gg - gw).abs()
-    implied = lr * eps * dg / (torch.minimum(gg.abs(), gw.abs()) + eps) ** 2
-    dw = (full(got_p[path]) - w).abs()
-    leaves["/".join(path)] = {
-        "dg": float(dg.max()), "g_scale": float(gw.abs().max()),
-        "dw": float(dw.max()), "over": float((dw - implied).max())}
-print(json.dumps({
-    "loss": [float(full(got_m["loss"])), float(want_m["loss"])],
-    "grad_norm": [float(full(got_m["grad_norm"])),
-                  float(want_m["grad_norm"])],
-    "leaves": leaves}))
-dist.destroy_process_group()
-"""
+# (arch, cut) cases, their ids and the rank program (the plain step,
+# then the same step on DTensors under axis_rules, printing the
+# comparison as JSON) are chip_smoke's: the card machine's smoke run
+# (phase 11 (e)) runs the same program under its own torch
+CASES = chip_smoke.GLOO_TRAIN_CASES
 
 
 def _run_ranks(arch, cut):
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=os.path.join(root, "src"))
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _RANK, arch, str(port), str(r),
-         json.dumps(cut)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(4)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=120))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    res = []
-    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, (r, err[-3000:])
-        res.append(json.loads(out.strip().splitlines()[-1]))
-    return res
+    return chip_smoke.run_gloo(chip_smoke.GLOO_TRAIN_RANK,
+                               (arch, json.dumps(cut)))
 
 
-@pytest.mark.parametrize("arch,cut", CASES,
-                         ids=[a + ("-cut" if c else "") for a, c in CASES])
+@pytest.mark.parametrize("arch,cut", CASES, ids=chip_smoke.GLOO_TRAIN_IDS)
 def test_a_sharded_train_step_on_four_gloo_ranks_matches_the_plain_one(
         arch, cut):
     for r, res in enumerate(_run_ranks(arch, cut)):
@@ -227,6 +121,30 @@ def test_reshape_gradient_returns_in_the_inputs_placements():
         (gx,) = torch.autograd.grad(merged, x, g)
         assert gx.placements == place and tuple(gx.shape) == (2, 8, 40)
         assert tuple(gx.to_local().shape) == (2, 8, 10)
+
+
+def test_pad_pads_each_ranks_shards_and_keeps_their_placements():
+    """``sharding.pad`` (the causal conv's, the prefill cache's and the
+    padded heads' pad) on a fake (2, 4) mesh: a pad along a whole dim runs
+    on each rank's shards and keeps the placements; a pad along a sharded
+    dim gathers that dim first.  A plain tensor gets ``F.pad``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    x = torch.randn(2, 3, 4)
+    assert torch.equal(sharding.pad(x, (0, 0, 2, 1)),
+                       F.pad(x, (0, 0, 2, 1)))
+    with dryrun.fake_mesh((2, 4), ("data", "model")) as mesh:
+        place = (Shard(0), Shard(2))
+        x = DTensor.from_local(torch.empty(2, 16, 8, device="meta"), mesh,
+                               place, run_check=False,
+                               shape=torch.Size((4, 16, 32)),
+                               stride=(512, 32, 1))
+        y = sharding.pad(x, (0, 0, 3, 0))
+        assert y.placements == place and tuple(y.shape) == (4, 19, 32)
+        assert tuple(y.to_local().shape) == (2, 19, 8)
+        z = sharding.pad(x, (1, 1))
+        assert z.placements == (Shard(0), Replicate())
+        assert tuple(z.shape) == (4, 16, 34)
+        assert tuple(z.to_local().shape) == (2, 16, 34)
 
 
 def test_log_sigmoid_gradient_equals_logsigmoids():
