@@ -10,8 +10,9 @@ and then, failing on the first phase that goes wrong:
    versions, the kernels' build time and ``ptxas`` register/spill lines,
    and for each flash, decode, GEMM and RG-LRU scan kernel whether its
    SASS holds tensor-core instructions (``HMMA``, ``HGMMA``), TMA loads
-   (``UTMALDG``) and cp.async copies (``LDGSTS``); the bf16 flash kernel
-   must hold HMMA, every bf16 GEMM entry HGMMA and its TMA entries
+   (``UTMALDG``) and cp.async copies (``LDGSTS``); every bf16 flash entry
+   (uncapped and capped, one per ``HEAD_DIMS`` pair) must hold HGMMA and
+   UTMALDG and no HMMA, every bf16 GEMM entry HGMMA and its TMA entries
    UTMALDG, every scan entry LDGSTS, and no redesigned kernel (bf16 flash,
    decode, both GEMMs, the scan) may spill;
 2. holds every kernel against its plain PyTorch version on the card, at
@@ -28,7 +29,9 @@ and then, failing on the first phase that goes wrong:
    (G 1), fp32 and bf16, every operand inside a NaN frame; the bf16 flash
    kernel at every (dqk, dv) pair it instantiates, and both flash kernels
    there with ``q_offset``, ``softcap`` and a window after an offset
-   (keys past Skv NaN in their buffer); decode at the edges of
+   (keys past Skv, an extra head and extra columns NaN in their buffer);
+   every bf16 flash check made twice (bit-identical) and replayed from a
+   CUDA graph (equal to the eager call); decode at the edges of
    its split plan's chunks, each call made twice and required to repeat
    bit for bit, and one decode call profiled to be one kernel launch;
 3. checks full-width TinyLlama-1.1B, and recurrentgemma-2b cut to 5
@@ -46,7 +49,9 @@ and then, failing on the first phase that goes wrong:
    bf16 through the port's MESC server (the batch drive of
    ``repro_torch.launch.serve``), checking the step order against the
    CPU port, that HI requests run at the step after they arrive, and the
-   kernel launches per decode step / prefill against the layer pattern;
+   kernel launches per decode step / prefill against the layer pattern
+   (every flash launch on the bf16 ``wgmma`` route, here and in phases 7
+   (b), 10 (d) and 11 (c));
    for recurrentgemma-2b a run with one resident slot evicts a LO
    request's cache to the host and restores it, and its tokens must
    equal an uninterrupted run's; the save and restore of one request's
@@ -70,7 +75,9 @@ and then, failing on the first phase that goes wrong:
 5. runs the preemptible GEMM (``repro_torch.launch.preemptible_gemm``);
 6. times each kernel at its main path's shapes against its plain version,
    one PyTorch library call (where one computes the same function) and
-   its bound on the card (flash and decode also at LLaVA-NeXT-34B's and
+   its bound on the card, each flash row beside its time before the
+   wgmma kernel, its ratio to SDPA and its TFLOP/s (flash and decode also
+   at LLaVA-NeXT-34B's and
    MusicGen-large's shapes; flash on the second 512-token chunk of a
    1024-token TinyLlama prompt, plainly and with a score cap of 50), and
    the scan plan's alternatives (channels x
@@ -285,18 +292,18 @@ def host_call_ms(fn, reps: int = 30) -> float:
 # 1. what the attention and GEMM kernels compiled to
 # ---------------------------------------------------------------------------
 
-KERNELS = ("flash_mma_kernel", "flash_kernel", "decode_kernel",
+KERNELS = ("flash_wgmma_kernel", "flash_kernel", "decode_kernel",
            "gemm_wgmma_kernel", "gemm_f32_kernel", "rglru_kernel")
 # the redesigned ones, which must not spill
-NO_SPILL = ("flash_mma_kernel", "decode_kernel", "gemm_wgmma_kernel",
+NO_SPILL = ("flash_wgmma_kernel", "decode_kernel", "gemm_wgmma_kernel",
             "gemm_f32_kernel", "rglru_kernel")
 SASS_OPS = ("HMMA", "HGMMA", "UTMALDG", "LDGSTS")
 
 
-def _short(mangled: str) -> str:
+def _short(mangled: str, kernels=KERNELS) -> str:
     """``decode_kernel<bf16,64>`` or ``gemm_wgmma_kernel<192,true,f32>``
-    from a mangled entry name."""
-    m = re.search(r"(%s)I(.*?)EEv" % "|".join(KERNELS), mangled)
+    from a mangled entry name of one of ``kernels``."""
+    m = re.search(r"(%s)I(.*?)EEv" % "|".join(kernels), mangled)
     if not m:
         return mangled
     args = []
@@ -315,9 +322,10 @@ def kernel_report() -> list:
     """Registers and spills (``ptxas -v``) and which of HMMA, HGMMA,
     UTMALDG and LDGSTS the SASS holds (``cuobjdump -sass``), for every
     flash, decode, GEMM and scan entry.  Fails where a redesigned kernel
-    spills, where the bf16 flash kernel lacks HMMA, where a bf16 GEMM entry
-    lacks HGMMA (and, on its TMA route, UTMALDG), or where a scan entry
-    lacks LDGSTS (its cp.async ring)."""
+    spills, where a bf16 flash entry lacks HGMMA or UTMALDG or holds HMMA
+    (mma.sync), where a bf16 GEMM entry lacks HGMMA (and, on its TMA
+    route, UTMALDG), or where a scan entry lacks LDGSTS (its cp.async
+    ring)."""
     from repro_torch.kernels import _build, rglru_scan
     entries, cur = {}, None
     for ln in _build.ptxas_report().splitlines():
@@ -363,8 +371,8 @@ def kernel_report() -> list:
     for e in rows:
         if any(e["name"].startswith(k) for k in NO_SPILL):
             assert e.get("spill_stores") == 0 and e.get("spill_loads") == 0, e
-        if e["name"].startswith("flash_mma_kernel"):
-            assert e["hmma"], e
+        if e["name"].startswith("flash_wgmma_kernel"):
+            assert e["hgmma"] and e["utmaldg"] and not e["hmma"], e
         if e["name"].startswith("gemm_wgmma_kernel"):
             assert e["hgmma"], e
             if e["name"].split(",")[1] == "true":       # the TMA route
@@ -377,7 +385,7 @@ def kernel_report() -> list:
         * len(rglru_scan.STAGES)                       # x the two routes
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     # each flash pair twice: uncapped and capped (softcap > 0)
-    assert count["flash_mma_kernel"] == 2 * len(HEAD_DIMS) \
+    assert count["flash_wgmma_kernel"] == 2 * len(HEAD_DIMS) \
         and count["flash_kernel"] == 2 * len(HEAD_DIMS) \
         and count["decode_kernel"] == 10 \
         and count["gemm_wgmma_kernel"] == 8 \
@@ -457,6 +465,28 @@ def phase_kernels(dev):
     phase_family_kernels(dev, gen)
     phase_attention_edges(dev, gen)
     torch.cuda.synchronize()
+
+
+def flash_checked(what, fn):
+    """``fn()``, one flash call; in bf16 (the wgmma kernel) made twice,
+    bit-identical, and captured in a CUDA graph whose replay equals the
+    eager call (the TMA maps travel as kernel parameters)."""
+    out = fn()
+    if out.dtype != torch.bfloat16:
+        return out
+    assert torch.equal(out, fn()), f"{what}: a repeat differs"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replay = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replay, out), f"{what}: the graph replay differs"
+    return out
 
 
 def _poisoned(a, b, k0, k1, bk):
@@ -571,13 +601,16 @@ def phase_hybrid_kernels(dev, gen):
         q = randn((1, 2560, 10, 256), gen, dt).transpose(1, 2)
         k = randn((1, 2560, 1, 256), gen, dt).transpose(1, 2)
         v = randn((1, 2560, 1, 256), gen, dt).transpose(1, 2)
-        check_close(f"flash window 2048 B1 Hq10 Hkv1 dh256 S2560 {dt}",
-                    flash_attention_tpu(q, k, v, window=2048),
+        what = f"flash window 2048 B1 Hq10 Hkv1 dh256 S2560 {dt}"
+        check_close(what, flash_checked(
+                        what, lambda: flash_attention_tpu(q, k, v,
+                                                          window=2048)),
                     ref.flash_attention_ref(q, k, v, window=2048),
                     ATTN_TOL[dt])
-        check_close(f"flash causal B1 Hq10 Hkv1 dh256 S512 {dt}",
-                    flash_attention_tpu(q[:, :, :512], k[:, :, :512],
-                                        v[:, :, :512]),
+        what = f"flash causal B1 Hq10 Hkv1 dh256 S512 {dt}"
+        check_close(what, flash_checked(
+                        what, lambda: flash_attention_tpu(
+                            q[:, :, :512], k[:, :, :512], v[:, :, :512])),
                     ref.flash_attention_ref(q[:, :, :512], k[:, :, :512],
                                             v[:, :, :512]), ATTN_TOL[dt])
     # windowed decode: a 2048-slot ring (model layout view), G 10, dh 256,
@@ -622,10 +655,10 @@ def phase_mla_kernels(dev, gen):
             q = _nan_framed((1, S, 16, dqk), gen, dt)
             k = _nan_framed((1, S, 16, dqk), gen, dt)
             v = _nan_framed((1, S, 16, dv), gen, dt)
-            out = flash_attention_tpu(q, k, v)
+            what = f"flash MLA dqk {dqk} dv {dv} q 1x16x{S} {dt} (NaN frame)"
+            out = flash_checked(what, lambda: flash_attention_tpu(q, k, v))
             assert out.shape == (1, 16, S, dv), out.shape
-            check_close(f"flash MLA dqk {dqk} dv {dv} q 1x16x{S} {dt} "
-                        "(NaN frame)", out, ref.flash_attention_ref(q, k, v),
+            check_close(what, out, ref.flash_attention_ref(q, k, v),
                         ATTN_TOL[dt])
 
 
@@ -652,11 +685,12 @@ def phase_family_kernels(dev, gen):
             q = _nan_framed((1, S, Hq, dh), gen, dt)
             k = _nan_framed((1, S, Hkv, dh), gen, dt)
             v = _nan_framed((1, S, Hkv, dh), gen, dt)
-            out = flash_attention_tpu(q, k, v)
+            what = (f"flash {name} q 1x{Hq}x{S}x{dh} kv 1x{Hkv}x{S}x{dh}"
+                    f" {dt} causal (NaN frame)")
+            out = flash_checked(what, lambda: flash_attention_tpu(q, k, v))
             assert out.shape == (1, Hq, S, dh), out.shape
-            check_close(f"flash {name} q 1x{Hq}x{S}x{dh} kv 1x{Hkv}x{S}x{dh}"
-                        f" {dt} causal (NaN frame)", out,
-                        ref.flash_attention_ref(q, k, v), ATTN_TOL[dt])
+            check_close(what, out, ref.flash_attention_ref(q, k, v),
+                        ATTN_TOL[dt])
             qd = _nan_framed((1, 1, Hq, dh), gen, dt)[:, :, 0]
             kc = _nan_framed((1, 1024, Hkv, dh), gen, dt)
             vc = _nan_framed((1, 1024, Hkv, dh), gen, dt)
@@ -725,8 +759,10 @@ def phase_flash_options(gen, dqk, dv, dtype):
     """Flash at one (dqk, dv) pair with the reference's ``q_offset`` and
     ``softcap`` and a window after an offset (``FLASH_OPTIONS``): a
     ragged 100-query chunk, GQA 8/2, against Skv = q_offset + 100 keys
-    whose buffer holds NaN rows past Skv (a kernel that reads a key past
-    Skv returns NaN), held to the plain version within ``ATTN_TOL`` plus
+    whose buffer frames them in NaN (16 rows past Skv, a third head, 8
+    more columns: a kernel that reads a key past Skv, another head or past
+    the head dim returns NaN), held to the plain version within
+    ``ATTN_TOL`` plus
     ``ATTN_RTOL`` of the largest output: q scaled by 4 sharpens the
     softmax, whose outputs then reach the values' extremes."""
     from repro_torch.kernels import ref
@@ -737,29 +773,29 @@ def phase_flash_options(gen, dqk, dv, dtype):
         q = (4 * randn((1, S, 8, dqk), gen)).to(dtype).transpose(1, 2)
         kv = []
         for d in (dqk, dv):
-            buf = torch.full((1, Skv + 16, 2, d), float("nan"), dtype=dtype,
-                             device=gen.device)
-            buf[:, :Skv] = randn((1, Skv, 2, d), gen, dtype)
-            kv.append(buf[:, :Skv].transpose(1, 2))
-        out = flash_attention_tpu(q, *kv, q_offset=off, softcap=cap,
-                                  window=window, block_q=S, block_kv=Skv)
+            buf = torch.full((1, Skv + 16, 3, d + 8), float("nan"),
+                             dtype=dtype, device=gen.device)
+            buf[:, :Skv, :2, :d] = randn((1, Skv, 2, d), gen, dtype)
+            kv.append(buf[:, :Skv, :2, :d].transpose(1, 2))
+        what = (f"flash {dtype} dh{dqk}/{dv} S{S} Skv{Skv} q_offset {off} "
+                f"softcap {cap} window {window} (NaN frame past Skv)")
+        out = flash_checked(what, lambda: flash_attention_tpu(
+            q, *kv, q_offset=off, softcap=cap, window=window, block_q=S,
+            block_kv=Skv))
         assert bool(torch.isfinite(out).all()), (dqk, dv, off, cap, window)
-        check_close(f"flash {dtype} dh{dqk}/{dv} S{S} Skv{Skv} q_offset "
-                    f"{off} softcap {cap} window {window} (NaN past Skv)",
-                    out, ref.flash_attention_ref(
+        check_close(what, out, ref.flash_attention_ref(
                         q, *kv, q_offset=off, softcap=cap, window=window),
                     ATTN_TOL[dtype], ATTN_RTOL[dtype])
 
 
 def phase_attention_edges(dev, gen):
-    """The bf16 tensor-core flash kernel at every (dqk, dv) pair it
+    """The bf16 wgmma flash kernel at every (dqk, dv) pair it
     instantiates, and both flash kernels there with ``q_offset``,
-    ``softcap`` and a window after an offset (``phase_flash_options``);
+    ``softcap`` and a window after an offset (``phase_flash_options``),
+    every bf16 flash call twice and from a CUDA graph (``flash_checked``);
     decode at the edges of its split plan's chunks, every call twice and
     bit-identical (the last block reset its counter), and one call
     profiled to be one kernel launch."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (HEADS_PER_BLOCK,
                                                       decode_attention_tpu,
@@ -775,18 +811,21 @@ def phase_attention_edges(dev, gen):
                 k = randn((B, S, Hkv, dh), gen, bf).transpose(1, 2)
                 v = randn((B, S, Hkv, dv), gen, bf).transpose(1, 2)
                 for causal in (True, False):
-                    check_close(f"flash bf16 dh{dh}/{dv} B{B} Hq{Hq} Hkv{Hkv}"
-                                f" S{S} causal={causal}",
-                                flash_attention_tpu(q, k, v, causal=causal),
+                    what = (f"flash bf16 dh{dh}/{dv} B{B} Hq{Hq} Hkv{Hkv}"
+                            f" S{S} causal={causal}")
+                    check_close(what, flash_checked(
+                                    what, lambda: flash_attention_tpu(
+                                        q, k, v, causal=causal)),
                                 ref.flash_attention_ref(q, k, v,
                                                         causal=causal),
                                 ATTN_TOL[bf])
         q = randn((1, 300, 4, dh), gen, bf).transpose(1, 2)
         k = randn((1, 300, 1, dh), gen, bf).transpose(1, 2)
         v = randn((1, 300, 1, dv), gen, bf).transpose(1, 2)
-        check_close(f"flash bf16 dh{dh}/{dv} Hq4 Hkv1 S300 window 64",
-                    flash_attention_tpu(q, k, v, window=64, block_q=300,
-                                        block_kv=300),
+        what = f"flash bf16 dh{dh}/{dv} Hq4 Hkv1 S300 window 64"
+        check_close(what, flash_checked(
+                        what, lambda: flash_attention_tpu(
+                            q, k, v, window=64, block_q=300, block_kv=300)),
                     ref.flash_attention_ref(q, k, v, window=64), ATTN_TOL[bf])
         for dt in (torch.float32, bf):
             phase_flash_options(gen, dh, dv, dt)
@@ -817,20 +856,11 @@ def phase_attention_edges(dev, gen):
     RECORD["hybrid_decode_blocks_pos535"] = blocks
     q = randn((1, 10, 256), gen, bf)
     kc = randn((1, 2048, 1, 256), gen, bf).transpose(1, 2)
-    decode_attention_tpu(q, kc, kc, 535)
-    torch.cuda.synchronize()
-    # the process's first profiler session has come back from an H100
-    # without a single device event: that is no count, so profile again
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            decode_attention_tpu(q, kc, kc, 535)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            break
-    log(f"  one decode call launched {len(names)} kernel(s): {names}")
-    assert len(names) == 1 and "decode_kernel" in names[0], names
+    prof = kernel_profile(lambda: decode_attention_tpu(q, kc, kc, 535),
+                          calls=1)
+    log(f"  one decode call launched {prof}")
+    assert [e["launches"] for e in prof.values()] == [1.0] \
+        and "decode_kernel" in next(iter(prof)), prof
 
 
 # ---------------------------------------------------------------------------
@@ -887,6 +917,14 @@ def path_launches(cfg) -> tuple:
     n_attn = pattern.count("attn")
     return (n_attn, 0 if cfg.family == "mla_moe" else n_attn,
             pattern.count("rglru"))
+
+
+def check_flash_route(what: str, n_flash: int) -> None:
+    """Every one of the ``n_flash`` flash launches since the counters'
+    reset took the bf16 ``wgmma`` route (``_build.FLASH_ROUTES``)."""
+    from repro_torch.kernels import _build
+    routes = dict(_build.FLASH_ROUTES)
+    assert routes == {"wgmma": n_flash, "ffma": 0}, (what, routes, n_flash)
 
 
 def zero_tokens(cfg, *shape):
@@ -1048,6 +1086,7 @@ def phase_serving(dev, arch, runs, n_layers=None):
         assert launches["decode_attention"] == n_dec * steps, (tag, launches)
         assert launches["flash_attention"] == n_attn * prefills, \
             (tag, launches)
+        check_flash_route(tag, launches["flash_attention"])
         assert launches["rglru_scan"] == n_rec * prefills, (tag, launches)
         his = {r.rid for r in reqs if r.crit == Crit.HI}
         first = order[order.index("hi") + 1]
@@ -1239,6 +1278,7 @@ def phase_vlm_serving(dev):
     launches = dict(_build.LAUNCHES)
     assert launches["flash_attention"] == n_flash \
         and launches["decode_attention"] == 8 * n_dec, launches
+    check_flash_route("llava-next-34b prefill", n_flash)
     assert cache["pos"] == 1032 and logits.shape == (1, cfg.vocab)
     assert bool(torch.isfinite(logits.float()).all())
     prefixed = {"positions": 1024, "patches": n_vis,
@@ -1298,6 +1338,7 @@ def phase_audio(dev):
     launches = dict(_build.LAUNCHES)
     assert launches["flash_attention"] == n_flash \
         and launches["decode_attention"] == 16 * n_dec, launches
+    check_flash_route("musicgen-large prefill", n_flash)
     assert logits.shape == (1, cfg.n_codebooks, cfg.vocab)
     assert bool(torch.isfinite(logits.float()).all())
     assert all(0 <= t < cfg.vocab for step in toks for t in step)
@@ -1595,6 +1636,7 @@ def phase_open_loop(dev, arch="tinyllama-1.1b") -> dict:
             assert launches["decode_attention"] == n_attn * steps, launches
             assert launches["flash_attention"] == n_attn * prefills, \
                 launches
+            check_flash_route(name, launches["flash_attention"])
         row = slo_summary(reqs.values(), hi_deadline_s=FIG12_HI_DEADLINE_S)
         replayed = [r for r in reqs.values()
                     if r.crit == Crit.HI or r.saves > 0]
@@ -2448,6 +2490,7 @@ def phase_train_full(dev, card, power, arch="tinyllama-1.1b", batch=8,
     n_flash = _build.LAUNCHES["flash_attention"]
     assert n_flash == n_attn and _build.LAUNCHES["decode_attention"] == 0, \
         _build.LAUNCHES
+    check_flash_route("trained weights' prefill", n_flash)
     outs = [logits]
     decode = trainer.make_decode_step(cfg, rc)
     _build.reset_launches()
@@ -2788,6 +2831,8 @@ def phase_sharded_cell(dev, kind_name: str, batch: int) -> dict:
         sharded_s = time.perf_counter() - t0
         launches = _build.LAUNCHES[kernel]
         assert launches == cfg.n_layers, (kernel, launches)
+        if kernel == "flash_attention":
+            check_flash_route(f"sharded {shape.name}", launches)
         assert torch.equal(dlogits.to_local(), logits), \
             max_err(dlogits.to_local(), logits)
         for k in ("ck", "cv"):
@@ -3204,14 +3249,21 @@ def phase_sharding(dev, gloo=None) -> dict:
 # 6. timing at the main path's shapes
 # ---------------------------------------------------------------------------
 
-# the redesigned rows' kernel times before their redesign, when flash ran
-# on FFMA, decode in two kernels, the GEMM on 64x64 tiles (FFMA for fp32,
-# WMMA for bf16) and the scan one thread per channel (PERF.md's kernel
-# table: this script's phase 6 on an NVIDIA H100 80GB HBM3 at 700 W);
-# printed beside the new times, never in the kernels line
-BEFORE_REDESIGN_MS = {"decode_attention": 0.0247, "flash_attention": 0.1891,
+# each redesigned row's kernel time before its latest redesign (PERF.md's
+# kernel table: this script's phase 6 on an NVIDIA H100 80GB HBM3 at
+# 700 W): the flash rows on the mma.sync kernel, decode in two kernels,
+# the GEMM on 64x64 tiles (FFMA for fp32, WMMA for bf16) and the scan one
+# thread per channel; printed beside the new times and kept in
+# RECORD["before_redesign_ms"], never in the kernels line
+BEFORE_REDESIGN_MS = {"flash_attention": 0.0183,
+                      "flash_attention@chunk512": 0.0326,
+                      "flash_attention@chunk512_softcap50": 0.0474,
+                      "flash_attention@recurrentgemma-2b": 0.0344,
+                      "flash_attention@llava-next-34b": 0.0958,
+                      "flash_attention@musicgen-large": 0.0168,
+                      "flash_attention@deepseek-v2-lite-16b": 0.0297,
+                      "decode_attention": 0.0247,
                       "decode_attention@recurrentgemma-2b": 0.0755,
-                      "flash_attention@recurrentgemma-2b": 1.7546,
                       "gemm_partial": 0.0716, "systolic_gemm": 0.0131,
                       "rglru_scan": 0.0227}
 
@@ -3220,6 +3272,27 @@ def _bound(flops, nbytes, peak):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_profile(fn, calls: int = 5) -> dict:
+    """The card's kernels in ``calls`` calls of ``fn`` (torch.profiler):
+    each kernel's launches and device microseconds a call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    # the process's first profiler session has come back from an H100
+    # without a single device event: that is no profile, so profile again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    return {e.key[:80]: {"launches": e.count / calls,
+                         "us": _device_us(e) / calls} for e in kernels}
 
 
 def flex_softcap_call(q, k, v, q_offset: int, softcap: float):
@@ -3289,10 +3362,17 @@ def phase_timing(dev, launches, card, power):
             f"{bound_ms:.5f} ms ({bound_by}), max|err| {err:.2e}")
         if r["library_ms"]:
             log(f"    {r['ms'] / r['library_ms']:.2f}x the library call")
+            if r["ms"] > 1.2 * r["library_ms"]:
+                r["profile"] = {"kernel": kernel_profile(kern),
+                                "library": kernel_profile(lib)}
+                log(f"    over 1.2x the library call; kernels a call "
+                    f"(torch.profiler, outside a graph): {r['profile']}")
+        r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
         if name in BEFORE_REDESIGN_MS:
             before = BEFORE_REDESIGN_MS[name]
             log(f"    before the redesign: {before} ms, "
-                f"{before / r['ms']:.1f}x this kernel's time")
+                f"{before / r['ms']:.2f}x this kernel's time; "
+                f"{r['tflops']:.1f} TFLOP/s")
 
     def decode_row(name, Hq, Hkv, dh, S, pos, note):
         """One layer's decode attention; the library call gets the KV
@@ -3323,7 +3403,7 @@ def phase_timing(dev, launches, card, power):
         pairs = S * (S + 1) // 2
         kr = k.repeat_interleave(Hq // Hkv, dim=1)
         vr = v.repeat_interleave(Hq // Hkv, dim=1)
-        row(name, "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
+        row(name, "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
             "src/repro/kernels/flash_attention.py:64",
             lambda: flash_attention_tpu(q, k, v, window=window),
             lambda: ref.flash_attention_ref(q, k, v, window=window),
@@ -3392,7 +3472,7 @@ def phase_timing(dev, launches, card, power):
                         lib(), ref.flash_attention_ref(
                             q, k, v, q_offset=off, softcap=cap),
                         ATTN_TOL[bf])
-        row(name, "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
+        row(name, "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
             "src/repro/kernels/flash_attention.py:64",
             lambda: flash_attention_tpu(q, k, v, q_offset=off, softcap=cap),
             lambda: ref.flash_attention_ref(q, k, v, q_offset=off,
@@ -3425,7 +3505,7 @@ def phase_timing(dev, launches, card, power):
     v = randn((1, S, H, dv), gen, bf).transpose(1, 2)
     pairs = S * (S + 1) // 2
     row("flash_attention@deepseek-v2-lite-16b",
-        "src/repro_torch/kernels/csrc/flash_attention_mma.cu",
+        "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         "src/repro/kernels/flash_attention.py:64",
         lambda: flash_attention_tpu(q, k, v),
         lambda: ref.flash_attention_ref(q, k, v),

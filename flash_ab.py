@@ -8,10 +8,12 @@ copy of the repository, for example an earlier commit unpacked with
 ``git archive`` into ``build/``), each from its own ``csrc/`` into its own
 ``build/``, and loads both libraries.  Then for each of phase 6's flash
 rows of ``chip_smoke.py`` (TinyLlama, recurrentgemma-2b's window,
-LLaVA-NeXT-34B, MusicGen-large and DeepSeek-V2-Lite's MLA, no cap and no
-offset) it compares the two kernels' outputs bit for bit and times them in
-rounds of other, this, this, other: device time, the median of 30
-CUDA-graph replays of 10 calls each time.  It prints each bf16 flash
+LLaVA-NeXT-34B, MusicGen-large and DeepSeek-V2-Lite's MLA, and the
+second 512-token chunk of a 1024-token TinyLlama prompt plainly and with a
+score cap of 50, where both checkouts take ``q_offset`` and ``softcap``)
+it compares the two kernels' outputs and times them in rounds of other,
+this, this, other: device time, the median of 30 CUDA-graph replays of
+10 calls each time.  It prints each bf16 flash
 entry's registers and spills (``ptxas -v``) in both builds, the card's
 name and power limit, and writes ``results/flash_ab.json``; it exits
 non-zero without CUDA.
@@ -35,12 +37,17 @@ import torch  # noqa: E402
 import chip_smoke  # noqa: E402
 
 ROUNDS = 5
-# (name, Hq, Hkv, dqk, dv, S, window): phase 6's flash rows
-ROWS = (("tinyllama-1.1b", 32, 4, 64, 64, 512, 0),
-        ("recurrentgemma-2b", 10, 1, 256, 256, 512, 2048),
-        ("llava-next-34b", 56, 8, 128, 128, 1024, 0),
-        ("musicgen-large", 32, 32, 64, 64, 512, 0),
-        ("deepseek-v2-lite-16b", 16, 16, 192, 128, 512, 0))
+# (name, Hq, Hkv, dqk, dv, S, Skv, window, q_offset, softcap): phase 6's
+# flash rows
+ROWS = (("tinyllama-1.1b", 32, 4, 64, 64, 512, 512, 0, 0, 0.0),
+        ("recurrentgemma-2b", 10, 1, 256, 256, 512, 512, 2048, 0, 0.0),
+        ("llava-next-34b", 56, 8, 128, 128, 1024, 1024, 0, 0, 0.0),
+        ("musicgen-large", 32, 32, 64, 64, 512, 512, 0, 0, 0.0),
+        ("deepseek-v2-lite-16b", 16, 16, 192, 128, 512, 512, 0, 0, 0.0),
+        ("chunk512", 32, 4, 64, 64, 512, 1024, 0, 512, 0.0),
+        ("chunk512_softcap50", 32, 4, 64, 64, 512, 1024, 0, 512, 50.0))
+# the bf16 flash kernel's entry, in either checkout
+FLASH_ENTRIES = ("flash_mma_kernel", "flash_wgmma_kernel")
 
 
 def load_build(checkout: Path, name: str):
@@ -59,8 +66,8 @@ def flash_entries(report: str) -> dict:
     for ln in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            cur = chip_smoke._short(m.group(1))
-            cur = cur if cur.startswith("flash_mma_kernel<") else None
+            cur = chip_smoke._short(m.group(1), FLASH_ENTRIES)
+            cur = cur if cur.split("<")[0] in FLASH_ENTRIES else None
             continue
         if cur is None:
             continue
@@ -74,10 +81,10 @@ def flash_entries(report: str) -> dict:
     return out
 
 
-def caller(lib, q, k, v, out, window):
+def caller(lib, q, k, v, out, window, q_offset=0, softcap=0.0):
     """A launch of ``lib``'s bf16 flash entry on these tensors, through
     whichever C interface the checkout has (with or without q_offset and
-    softcap)."""
+    softcap; without them only for a call that passes neither)."""
     fn = lib.repro_flash_attention_bf16
     B, Hq, S, dqk = q.shape
     Hkv, Skv, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -85,9 +92,10 @@ def caller(lib, q, k, v, out, window):
     head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
             Hkv, S, Skv, dqk, dv, 1, window]
     if len(fn.argtypes) == len(head) + len(strides) + 2:
+        assert not q_offset and not softcap, "the checkout takes neither"
         args = head + strides + [dqk ** -0.5]
-    else:                                   # q_offset 0, softcap 0 (none)
-        args = head + [0] + strides + [dqk ** -0.5, 0.0]
+    else:
+        args = head + [q_offset] + strides + [dqk ** -0.5, softcap]
 
     def call():                 # the current stream: a graph captures it
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -132,14 +140,14 @@ def main() -> int:
                   "(stores/loads)", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf = torch.bfloat16
-    for name, Hq, Hkv, dqk, dv, S, window in ROWS:
+    for name, Hq, Hkv, dqk, dv, S, Skv, window, off, cap in ROWS:
         q = chip_smoke.randn((1, S, Hq, dqk), gen, bf).transpose(1, 2)
-        k = chip_smoke.randn((1, S, Hkv, dqk), gen, bf).transpose(1, 2)
-        v = chip_smoke.randn((1, S, Hkv, dv), gen, bf).transpose(1, 2)
+        k = chip_smoke.randn((1, Skv, Hkv, dqk), gen, bf).transpose(1, 2)
+        v = chip_smoke.randn((1, Skv, Hkv, dv), gen, bf).transpose(1, 2)
         outs = {s: torch.empty((1, S, Hq, dv), dtype=bf,
                                device="cuda").transpose(1, 2)
                 for s in builds}
-        calls = {s: caller(m.lib(), q, k, v, outs[s], window)
+        calls = {s: caller(m.lib(), q, k, v, outs[s], window, off, cap)
                  for s, m in builds.items()}
         for c in calls.values():
             c()
@@ -149,8 +157,10 @@ def main() -> int:
         for _ in range(ROUNDS):
             for s in ("other", "this", "this", "other"):
                 times[s].append(chip_smoke.cuda_time_ms(calls[s]))
-        r = {"name": name, "shape": f"q 1x{Hq}x{S}x{dqk}, kv 1x{Hkv}x{S}x"
-             f"{dqk}/{dv} bf16" + (f", window {window}" if window else ""),
+        r = {"name": name, "shape": f"q 1x{Hq}x{S}x{dqk}, kv 1x{Hkv}x{Skv}x"
+             f"{dqk}/{dv} bf16" + (f", window {window}" if window else "")
+             + (f", q_offset {off}" if off else "")
+             + (f", softcap {cap:g}" if cap else ""),
              "bit_equal": same,
              "max_abs_diff": chip_smoke.max_err(outs["other"], outs["this"])}
         for s, ts in times.items():

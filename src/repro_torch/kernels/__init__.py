@@ -4,7 +4,8 @@ systolic_gemm     — checkpointable GEMM: fp32 accumulator seeded from a
                     saved one (preemption inside a GEMM) or from zero
 flash_attention   — causal flash attention with true tile skipping and an
                     optional local window (prefill): bf16 on the tensor
-                    cores (mma.sync), fp32 on FFMA (the parity path)
+                    cores (wgmma fed by TMA, warp-specialised; route
+                    "wgmma"), fp32 on FFMA (the parity path)
 decode_attention  — flash-decoding for the KV cache (decode) in one
                     launch: split blocks sized to fill the card, the
                     combine done by the last block of each KV head

@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # sources compiled a second time with these flags, into an object of their
 # own: the flash kernels' capped instantiations (softcap > 0)
 VARIANTS = {"flash_attention.cu": ("-DREPRO_FLASH_CAP=1",),
-            "flash_attention_mma.cu": ("-DREPRO_FLASH_CAP=1",)}
+            "flash_attention_wgmma.cu": ("-DREPRO_FLASH_CAP=1",)}
 
 # launches of each kernel wrapper; a wrapper adds one where it launches
 # its kernel and nowhere else (chip_smoke.py reads these)
@@ -43,6 +43,9 @@ LAUNCHES: Dict[str, int] = {"gemm_partial": 0, "systolic_gemm": 0,
 # the GEMM's launches by route (systolic_gemm.gemm_plan): "tma" and
 # "async" are the bf16 wgmma kernel's two producers, "ffma" the fp32 kernel
 GEMM_ROUTES: Dict[str, int] = {"tma": 0, "async": 0, "ffma": 0}
+# flash attention's launches by route: "wgmma" the bf16 kernel
+# (flash_attention.flash_plan), "ffma" the fp32 one
+FLASH_ROUTES: Dict[str, int] = {"wgmma": 0, "ffma": 0}
 
 # C entry points: name -> argtypes (c_void_p for every pointer and the
 # stream, c_int / c_longlong for sizes and strides)
@@ -64,8 +67,8 @@ _SIGNATURES = {
                                _L, ctypes.c_float, _P],
     # q, k, v, out, B, Hq, Hkv, S, Skv, dqk, dv, causal, window, q_offset,
     # q/k/v/o strides (b, h, s) each, scale, softcap, stream; _f32 is the
-    # FFMA kernel (flash_attention.cu), _bf16 the tensor-core one
-    # (flash_attention_mma.cu)
+    # FFMA kernel (flash_attention.cu), _bf16 the wgmma one
+    # (flash_attention_wgmma.cu)
     "repro_flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L,
                                   _L, _L, _L, _L, ctypes.c_float,
@@ -236,6 +239,6 @@ def check_no_grad(what: str, *tensors: torch.Tensor) -> None:
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, GEMM_ROUTES):
+    for counts in (LAUNCHES, GEMM_ROUTES, FLASH_ROUTES):
         for k in counts:
             counts[k] = 0

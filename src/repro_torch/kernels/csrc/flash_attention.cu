@@ -2,7 +2,7 @@
 // path of the prefill, with an optional local window (the hybrid family's
 // banded attention), a query offset (chunked prefill) and a score cap.
 // bf16, the serving path, runs on the tensor-core kernel in
-// flash_attention_mma.cu.
+// flash_attention_wgmma.cu.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_tpu
 // (_flash_kernel), and with a window the banded attention of

@@ -339,6 +339,46 @@ def test_flash_q_offset_and_softcap_every_head_dim(gen, dqk, dv, q_offset,
     assert _err(out, want) <= tol + rtol * float(want.float().abs().max())
 
 
+@pytest.mark.parametrize("dqk,dv", HEAD_DIMS)
+def test_flash_launches_take_the_wgmma_route(gen, dqk, dv):
+    """Every bf16 flash call at every pair launches the wgmma kernel
+    (route "wgmma"), every fp32 call the FFMA one: one launch each."""
+    for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "ffma")):
+        q = _randn(gen, 1, 100, 8, dqk, dtype=dtype).transpose(1, 2)
+        k = _randn(gen, 1, 100, 2, dqk, dtype=dtype).transpose(1, 2)
+        v = _randn(gen, 1, 100, 2, dv, dtype=dtype).transpose(1, 2)
+        before = dict(_build.FLASH_ROUTES)
+        flash_attention_tpu(q, k, v)
+        moved = {r: n - before[r] for r, n in _build.FLASH_ROUTES.items()
+                 if n != before[r]}
+        assert moved == {route: 1}, (dtype, moved)
+
+
+def test_flash_in_a_cuda_graph_equals_the_eager_call(gen):
+    """LLaVA-NeXT-34B's prefill layer (GQA 56/8, dh 128, 1024 tokens,
+    model-layout views): the TMA maps travel as kernel parameters, so a
+    captured call replays bit for bit what the eager call computed."""
+    bf = torch.bfloat16
+    q = _randn(gen, 1, 1024, 56, 128, dtype=bf).transpose(1, 2)
+    k = _randn(gen, 1, 1024, 8, 128, dtype=bf).transpose(1, 2)
+    v = _randn(gen, 1, 1024, 8, 128, dtype=bf).transpose(1, 2)
+    want = flash_attention_tpu(q, k, v)
+    assert _err(want, ref.flash_attention_ref(q, k, v)) <= BF16_TOL
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_attention_tpu(q, k, v)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_attention_tpu(q, k, v)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
 def test_flash_refuses_a_pair_it_does_not_instantiate(gen):
     q = _randn(gen, 1, 2, 8, 64).transpose(1, 2)
     with pytest.raises(ValueError):

@@ -254,7 +254,7 @@ def test_ctypes_signatures_match_the_c_entry_points():
 
 @pytest.mark.parametrize("src,macro", [
     ("flash_attention.cu", "REPRO_FLASH_CASE"),
-    ("flash_attention_mma.cu", "REPRO_FLASH_MMA_CASE")])
+    ("flash_attention_wgmma.cu", "REPRO_FLASH_WGMMA_CASE")])
 def test_flash_pair_table_matches_the_kernel_dispatch(src, macro):
     """``HEAD_DIMS`` lists exactly the (dqk, dv) pairs each flash kernel's
     dispatch instantiates, read from its source."""
