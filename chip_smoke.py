@@ -13,8 +13,9 @@ and then, failing on the first phase that goes wrong:
    (``UTMALDG``) and cp.async copies (``LDGSTS``); every bf16 flash entry
    (uncapped and capped, one per ``HEAD_DIMS`` pair) must hold HGMMA and
    UTMALDG and no HMMA, every bf16 GEMM entry HGMMA and its TMA entries
-   UTMALDG, every scan entry LDGSTS, and no redesigned kernel (bf16 flash,
-   decode, both GEMMs, the scan) may spill;
+   UTMALDG, every decode entry (fp32 and bf16, five head dims) UTMALDG,
+   every scan entry LDGSTS, and no redesigned kernel (bf16 flash, decode,
+   both GEMMs, the scan) may spill;
 2. holds every kernel against its plain PyTorch version on the card, at
    the main paths' shapes and at the sweep shapes of tests/test_kernels.py,
    in fp32 and bf16: the GEMM, decode and flash kernels at TinyLlama's
@@ -31,9 +32,13 @@ and then, failing on the first phase that goes wrong:
    there with ``q_offset``, ``softcap`` and a window after an offset
    (keys past Skv, an extra head and extra columns NaN in their buffer);
    every bf16 flash check made twice (bit-identical) and replayed from a
-   CUDA graph (equal to the eager call); decode at the edges of
-   its split plan's chunks, each call made twice and required to repeat
-   bit for bit, and one decode call profiled to be one kernel launch;
+   CUDA graph (equal to the eager call); every decode check at the edges
+   of the cluster plan the wrapper launches (a last chunk of one key, a
+   full last chunk, a tile edge, a chunk that walks the ring, and 0, 535
+   and the last slot), each call made twice and required to repeat bit
+   for bit and made a third time with the cache rows past ``pos`` set to
+   NaN, required to give the same bits, and one decode call profiled to
+   be one kernel launch;
 3. checks full-width TinyLlama-1.1B, and recurrentgemma-2b cut to 5
    layers (one (rglru, rglru, attn) group and the 2-layer tail) with a
    512-token prompt, in fp32, teacher-forced, on the card (kernels)
@@ -75,11 +80,13 @@ and then, failing on the first phase that goes wrong:
 5. runs the preemptible GEMM (``repro_torch.launch.preemptible_gemm``);
 6. times each kernel at its main path's shapes against its plain version,
    one PyTorch library call (where one computes the same function) and
-   its bound on the card, each flash row beside its time before the
-   wgmma kernel, its ratio to SDPA and its TFLOP/s (flash and decode also
-   at LLaVA-NeXT-34B's and
-   MusicGen-large's shapes; flash on the second 512-token chunk of a
-   1024-token TinyLlama prompt, plainly and with a score cap of 50), and
+   its bound on the card, each redesigned row beside its time before its
+   latest redesign, its ratio to the library call and its TFLOP/s (flash
+   and decode also at LLaVA-NeXT-34B's and MusicGen-large's shapes; decode
+   at the open-loop drive's last position (63 of a 64-slot cache), at
+   TinyLlama's 1023 and on the hybrid's full 2048-slot ring; flash on the
+   second 512-token chunk of a 1024-token TinyLlama prompt, plainly and
+   with a score cap of 50), and
    the scan plan's alternatives (channels x
    steps x stages) at the hybrid's 512-token prefill;
 7. (run after 5, before 6) open-loop serving: (a) the 16 points of the
@@ -324,8 +331,8 @@ def kernel_report() -> list:
     flash, decode, GEMM and scan entry.  Fails where a redesigned kernel
     spills, where a bf16 flash entry lacks HGMMA or UTMALDG or holds HMMA
     (mma.sync), where a bf16 GEMM entry lacks HGMMA (and, on its TMA
-    route, UTMALDG), or where a scan entry lacks LDGSTS (its cp.async
-    ring)."""
+    route, UTMALDG), where a decode entry lacks UTMALDG (its TMA ring) or
+    a scan entry LDGSTS (its cp.async ring)."""
     from repro_torch.kernels import _build, rglru_scan
     entries, cur = {}, None
     for ln in _build.ptxas_report().splitlines():
@@ -379,6 +386,8 @@ def kernel_report() -> list:
                 assert e["utmaldg"], e
         if e["name"].startswith("rglru_kernel"):
             assert e["ldgsts"], e
+        if e["name"].startswith("decode_kernel"):       # its TMA ring
+            assert e["utmaldg"], e
     count = {k: sum(e["name"].startswith(k + "<") for e in rows)
              for k in KERNELS}
     scan_entries = 2 * len(rglru_scan.CHANNELS) * len(rglru_scan.STEPS) \
@@ -413,9 +422,34 @@ def randn(shape, gen, dtype=torch.float32):
     return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
 
 
+def decode_edges(what, q, kc, vc, tol, block_s=1024):
+    """Decode against its plain version at the edges of the cluster plan
+    the wrapper launches for this cache (``edge_positions``: a last chunk
+    of one key, a full last chunk, a tile edge, a chunk that walks the
+    ring; 0, 535 and the last slot): each call twice and bit-identical,
+    and a third time with the cache rows past ``pos`` set to NaN, which
+    must give the same bits."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import (decode_attention_tpu,
+                                                      edge_positions,
+                                                      plan_for)
+    for pos in edge_positions(lambda p: plan_for(q, kc, p), kc.shape[2]):
+        got = decode_attention_tpu(q, kc, vc, pos, block_s=block_s)
+        again = decode_attention_tpu(q, kc, vc, pos, block_s=block_s)
+        kp, vp = kc.clone(), vc.clone()
+        kp[:, :, pos + 1:] = float("nan")
+        vp[:, :, pos + 1:] = float("nan")
+        poisoned = decode_attention_tpu(q, kp, vp, pos, block_s=block_s)
+        assert torch.equal(got, again), (what, pos)
+        assert torch.equal(got, poisoned), (what, pos)
+        plan = tuple(plan_for(q, kc, pos))
+        check_close(f"{what} pos {pos} plan {plan} (twice, bit-identical; "
+                    "NaN past pos: the same bits)", got,
+                    ref.decode_attention_ref(q, kc, vc, pos), tol)
+
+
 def phase_kernels(dev):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention_tpu
     from repro_torch.kernels.flash_attention import flash_attention_tpu
     from repro_torch.kernels.systolic_gemm import gemm_partial, systolic_gemm
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -423,23 +457,20 @@ def phase_kernels(dev):
 
     phase_gemm_kernels(dev, gen)
 
-    # decode: main path (model layout, transposed cache view) and sweep
+    # decode: main path (model layout, transposed cache view) and sweep,
+    # at the cluster plan's edges with the rows past pos NaN
     for dt in (torch.float32, torch.bfloat16):
         q = randn((1, 32, 64), gen, dt)
         kc = randn((1, 1024, 4, 64), gen, dt).transpose(1, 2)
         vc = randn((1, 1024, 4, 64), gen, dt).transpose(1, 2)
-        for pos in (0, 17, 511, 1023):
-            check_close(f"decode B1 Hq32 Hkv4 dh64 S1024 pos {pos} {dt}",
-                        decode_attention_tpu(q, kc, vc, pos),
-                        ref.decode_attention_ref(q, kc, vc, pos),
-                        ATTN_TOL[dt])
-    for (B, Hq, Hkv, S, dh) in [(2, 8, 2, 256, 64), (1, 4, 4, 512, 32)]:
-        q = randn((B, Hq, dh), gen)
-        kc, vc = randn((B, Hkv, S, dh), gen), randn((B, Hkv, S, dh), gen)
-        for pos in (0, 17, 255):
-            check_close(f"decode sweep {B},{Hq},{Hkv},{S},{dh} pos {pos}",
-                        decode_attention_tpu(q, kc, vc, pos, block_s=64),
-                        ref.decode_attention_ref(q, kc, vc, pos), 5e-5)
+        decode_edges(f"decode B1 Hq32 Hkv4 dh64 S1024 {dt}", q, kc, vc,
+                     ATTN_TOL[dt])
+        for (B, Hq, Hkv, S, dh) in [(2, 8, 2, 256, 64), (1, 4, 4, 512, 32)]:
+            q = randn((B, Hq, dh), gen, dt)
+            kc = randn((B, Hkv, S, dh), gen, dt)
+            vc = randn((B, Hkv, S, dh), gen, dt)
+            decode_edges(f"decode sweep {B},{Hq},{Hkv},{S},{dh} {dt}", q, kc,
+                         vc, ATTN_TOL[dt], block_s=64)
 
     # prefill: main path (model layout views) and sweep
     for dt in (torch.float32, torch.bfloat16):
@@ -592,7 +623,6 @@ def phase_hybrid_kernels(dev, gen):
     """The hybrid family's kernels at its shapes: the RG-LRU scan, flash
     with a window at dh 256, decode at dh 256 / G 10 on a window ring."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention_tpu
     from repro_torch.kernels.flash_attention import flash_attention_tpu
     phase_scan_kernel(dev, gen)
     # local attention of the hybrid's prefill at a length where the window
@@ -619,11 +649,8 @@ def phase_hybrid_kernels(dev, gen):
         q = randn((1, 10, 256), gen, dt)
         kc = randn((1, 2048, 1, 256), gen, dt).transpose(1, 2)
         vc = randn((1, 2048, 1, 256), gen, dt).transpose(1, 2)
-        for pos in (0, 535, 2047):
-            check_close(f"decode B1 Hq10 Hkv1 dh256 ring 2048 pos_eff {pos} "
-                        f"{dt}", decode_attention_tpu(q, kc, vc, pos),
-                        ref.decode_attention_ref(q, kc, vc, pos),
-                        ATTN_TOL[dt])
+        decode_edges(f"decode B1 Hq10 Hkv1 dh256 ring 2048 {dt}", q, kc, vc,
+                     ATTN_TOL[dt])
 
 
 def _nan_framed(shape, gen, dtype):
@@ -673,12 +700,9 @@ def phase_family_kernels(dev, gen):
     """Flash and decode at LLaVA-NeXT-34B's and MusicGen-large's head
     layouts against their plain versions, fp32 and bf16, every operand a
     view inside a NaN frame: causal flash at the prefill lengths (1024 and
-    512); decode at G 7 (two head groups, 4 + 3) and G 1 at 0, the split
-    plan's first chunk edge, 535 and 1023, each call twice and
-    bit-identical."""
+    512); decode at G 7 (two head groups, 4 + 3) and G 1 at the cluster
+    plan's edges (``decode_edges``)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import (decode_attention_tpu,
-                                                      split_plan)
     from repro_torch.kernels.flash_attention import flash_attention_tpu
     for name, Hq, Hkv, dh, S in FAMILY_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
@@ -694,17 +718,9 @@ def phase_family_kernels(dev, gen):
             qd = _nan_framed((1, 1, Hq, dh), gen, dt)[:, :, 0]
             kc = _nan_framed((1, 1024, Hkv, dh), gen, dt)
             vc = _nan_framed((1, 1024, Hkv, dh), gen, dt)
-            chunk, _ = split_plan(1, Hkv, 1024, Hq // Hkv, dh,
-                                  itemsize=qd.element_size())
-            for pos in sorted({0, chunk - 1, chunk, 535, 1023}):
-                got = decode_attention_tpu(qd, kc, vc, pos)
-                assert torch.equal(got, decode_attention_tpu(qd, kc, vc,
-                                                             pos)), pos
-                check_close(f"decode {name} q 1x{Hq}x{dh} cache "
-                            f"1x{Hkv}x1024x{dh} G {Hq // Hkv} pos {pos} {dt} "
-                            "(NaN frame, twice, bit-identical)", got,
-                            ref.decode_attention_ref(qd, kc, vc, pos),
-                            ATTN_TOL[dt])
+            decode_edges(f"decode {name} q 1x{Hq}x{dh} cache "
+                         f"1x{Hkv}x1024x{dh} G {Hq // Hkv} {dt} (NaN frame)",
+                         qd, kc, vc, ATTN_TOL[dt])
 
 
 def phase_scan_kernel(dev, gen):
@@ -793,13 +809,12 @@ def phase_attention_edges(dev, gen):
     instantiates, and both flash kernels there with ``q_offset``,
     ``softcap`` and a window after an offset (``phase_flash_options``),
     every bf16 flash call twice and from a CUDA graph (``flash_checked``);
-    decode at the edges of its split plan's chunks, every call twice and
-    bit-identical (the last block reset its counter), and one call
-    profiled to be one kernel launch."""
+    decode at the edges of its cluster plan (``decode_edges``) for more
+    than one cluster a batch row and for two passes over the heads, and
+    one call profiled to be one kernel launch."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import (HEADS_PER_BLOCK,
-                                                      decode_attention_tpu,
-                                                      split_plan)
+    from repro_torch.kernels.decode_attention import (decode_attention_tpu,
+                                                      plan_for)
     from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                      flash_attention_tpu)
     bf = torch.bfloat16
@@ -829,31 +844,23 @@ def phase_attention_edges(dev, gen):
                     ref.flash_attention_ref(q, k, v, window=64), ATTN_TOL[bf])
         for dt in (torch.float32, bf):
             phase_flash_options(gen, dh, dv, dt)
-    # decode: TinyLlama, the hybrid's ring, and B 2 x Hkv 2 (more than one
-    # counter) at both families' head shapes
-    for (B, Hkv, G, dh, S) in [(1, 4, 8, 64, 1024), (1, 1, 10, 256, 2048),
-                               (2, 2, 4, 64, 256), (2, 2, 10, 256, 1024)]:
+    # decode (TinyLlama and the hybrid's ring run in phases 2's main and
+    # hybrid checks): B 2 x Hkv 2 (two clusters a batch row) at both
+    # families' head shapes, and G 48 (two passes over each chunk)
+    for (B, Hkv, G, dh, S) in [(2, 2, 4, 64, 256), (2, 2, 10, 256, 1024),
+                               (1, 2, 48, 64, 256)]:
         for dt in (torch.float32, bf):
             q = randn((B, Hkv * G, dh), gen, dt)
             kc = randn((B, S, Hkv, dh), gen, dt).transpose(1, 2)
             vc = randn((B, S, Hkv, dh), gen, dt).transpose(1, 2)
-            chunk, _ = split_plan(B, Hkv, S, G, dh, itemsize=q.element_size())
-            for pos in sorted({0, chunk - 1, chunk, 535, S - 1} &
-                              set(range(S))):
-                got = decode_attention_tpu(q, kc, vc, pos)
-                again = decode_attention_tpu(q, kc, vc, pos)
-                assert torch.equal(got, again), (B, Hkv, G, dh, S, pos, dt)
-                check_close(f"decode B{B} Hkv{Hkv} G{G} dh{dh} S{S} pos {pos}"
-                            f" {dt} (twice, bit-identical)", got,
-                            ref.decode_attention_ref(q, kc, vc, pos),
-                            ATTN_TOL[dt])
-    chunk, n_split = split_plan(1, 1, 536, 10, 256)
-    blocks = n_split * -(-10 // HEADS_PER_BLOCK)
-    log(f"  decode plan, recurrentgemma-2b at ring position 535: chunk "
-        f"{chunk}, {n_split} splits x {-(-10 // HEADS_PER_BLOCK)} head "
-        f"groups = {blocks} blocks (fixed 64-position chunks: 9)")
-    assert blocks > 9
-    RECORD["hybrid_decode_blocks_pos535"] = blocks
+            decode_edges(f"decode B{B} Hkv{Hkv} G{G} dh{dh} S{S} {dt}", q,
+                         kc, vc, ATTN_TOL[dt])
+    q = randn((1, 10, 256), gen, bf)
+    kc = randn((1, 2048, 1, 256), gen, bf).transpose(1, 2)
+    plan = plan_for(q, kc, 535)
+    log(f"  decode plan, recurrentgemma-2b at ring position 535: {plan}: "
+        f"one cluster of {plan.n_split} CTAs")
+    RECORD["hybrid_decode_plan_pos535"] = list(plan)
     q = randn((1, 10, 256), gen, bf)
     kc = randn((1, 2048, 1, 256), gen, bf).transpose(1, 2)
     prof = kernel_profile(lambda: decode_attention_tpu(q, kc, kc, 535),
@@ -3251,10 +3258,12 @@ def phase_sharding(dev, gloo=None) -> dict:
 
 # each redesigned row's kernel time before its latest redesign (PERF.md's
 # kernel table: this script's phase 6 on an NVIDIA H100 80GB HBM3 at
-# 700 W): the flash rows on the mma.sync kernel, decode in two kernels,
-# the GEMM on 64x64 tiles (FFMA for fp32, WMMA for bf16) and the scan one
-# thread per channel; printed beside the new times and kept in
-# RECORD["before_redesign_ms"], never in the kernels line
+# 700 W): the flash rows on the mma.sync kernel, decode on the split-and-
+# fold kernel (blocks of 16-position chunks, partials combined through
+# global scratch and counters), the GEMM on 64x64 tiles (FFMA for fp32,
+# WMMA for bf16) and the scan one thread per channel; printed beside the
+# new times and kept in RECORD["before_redesign_ms"], never in the
+# kernels line
 BEFORE_REDESIGN_MS = {"flash_attention": 0.0183,
                       "flash_attention@chunk512": 0.0326,
                       "flash_attention@chunk512_softcap50": 0.0474,
@@ -3262,8 +3271,10 @@ BEFORE_REDESIGN_MS = {"flash_attention": 0.0183,
                       "flash_attention@llava-next-34b": 0.0958,
                       "flash_attention@musicgen-large": 0.0168,
                       "flash_attention@deepseek-v2-lite-16b": 0.0297,
-                      "decode_attention": 0.0247,
-                      "decode_attention@recurrentgemma-2b": 0.0755,
+                      "decode_attention": 0.0102,
+                      "decode_attention@recurrentgemma-2b": 0.0117,
+                      "decode_attention@llava-next-34b": 0.0135,
+                      "decode_attention@musicgen-large": 0.0069,
                       "gemm_partial": 0.0716, "systolic_gemm": 0.0131,
                       "rglru_scan": 0.0227}
 
@@ -3326,7 +3337,10 @@ def phase_timing(dev, launches, card, power):
     """``launches`` maps each row to the count of its path's run: the
     tinyllama, recurrentgemma-2b and deepseek-v2-lite-16b 512-token MESC
     runs, the llava-next-34b 8-token MESC run, the musicgen-large prefill
-    and decode, the preemptible GEMM."""
+    and decode, the preemptible GEMM; the decode rows at other positions
+    carry the launches of the run whose positions they stand for (pos 63:
+    the open-loop MESC run, on 64-slot caches; pos 1023: tinyllama's;
+    the hybrid's full ring: recurrentgemma-2b's)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_tpu
     from repro_torch.kernels.flash_attention import flash_attention_tpu
@@ -3354,6 +3368,8 @@ def phase_timing(dev, launches, card, power):
              "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape,
              "card": card, "power_limit": power}
         r["kernel_ms"] = r["ms"]
+        r["library_ratio"] = (r["ms"] / r["library_ms"] if r["library_ms"]
+                              else None)
         r["call_ms"] = host_call_ms(kern)
         rows.append(r)
         log(f"  {name} {shape}: kernel {r['ms']:.4f} ms, plain "
@@ -3497,6 +3513,14 @@ def phase_timing(dev, launches, card, power):
     for name, Hq, Hkv, dh, S in FAMILY_SHAPES:
         flash_row(f"flash_attention@{name}", Hq, Hkv, dh, S, 0, "")
         decode_row(f"decode_attention@{name}", Hq, Hkv, dh, 1024, 535, "")
+    # decode at other positions of a request: the open-loop drive's last
+    # (63 of a 64-slot cache), TinyLlama's cache nearly full, and the
+    # hybrid's ring full (every CTA of its cluster walks its ring)
+    decode_row("decode_attention@pos63", 32, 4, 64, 64, 63,
+               ", the open-loop drive's cache")
+    decode_row("decode_attention@pos1023", 32, 4, 64, 1024, 1023, "")
+    decode_row("decode_attention@recurrentgemma-2b@pos2047", 10, 1, 256,
+               2048, 2047, ", window ring full")
     # deepseek-v2-lite-16b: one MLA layer of the 512-token prefill, q/k
     # head dim 192 against v 128, 16 heads; SDPA takes Ev != E as it is
     H, S, dqk, dv = 16, 512, 192, 128
@@ -3574,24 +3598,6 @@ def phase_timing(dev, launches, card, power):
         log(f"  {name} (TMA route): kernel {e['ms']:.4f} ms, {lib_name} "
             f"{e['library_ms']:.4f} ms ({e['ms'] / e['library_ms']:.2f}x), "
             f"bound {e['bound_ms']:.5f} ms ({e['bound_by']})")
-        extras.append(e)
-    # decode later in a request (not main-path rows): TinyLlama's cache
-    # nearly full, the hybrid's ring full (128 splits, two combine levels)
-    for name, Hq, Hkv, dh, S, pos in [("decode_attention@pos1023", 32, 4, 64,
-                                       1024, 1023),
-                                      ("decode_attention@recurrentgemma-2b"
-                                       "@pos2047", 10, 1, 256, 2048, 2047)]:
-        q = randn((1, Hq, dh), gen, bf)
-        kc = randn((1, S, Hkv, dh), gen, bf).transpose(1, 2)
-        kr = kc[:, :, :pos + 1].repeat_interleave(Hq // Hkv, dim=1)
-        e = {"name": name, "shape": f"q 1x{Hq}x{dh}, cache 1x{Hkv}x{S}x{dh} "
-             f"bf16, pos {pos}",
-             "ms": cuda_time_ms(lambda: decode_attention_tpu(q, kc, kc, pos)),
-             "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                 q[:, :, None], kr, kr)),
-             "card": card, "power_limit": power}
-        log(f"  {name}: kernel {e['ms']:.4f} ms, SDPA "
-            f"{e['library_ms']:.4f} ms")
         extras.append(e)
     # the scan at the hybrid's 8-token prefill (launch-bound) and at a
     # 2560-token one (past the 50 MB L2: bytes-bound), beside the main row
@@ -3710,6 +3716,12 @@ def main() -> int:
         "flash_attention@musicgen-large": audio_launches["flash_attention"],
         "decode_attention@musicgen-large":
             audio_launches["decode_attention"],
+        "decode_attention@pos63":
+            RECORD["open_loop"]["runs"]["mesc"]["launches"][
+                "decode_attention"],
+        "decode_attention@pos1023": dense_launches["decode_attention"],
+        "decode_attention@recurrentgemma-2b@pos2047":
+            hybrid_launches["decode_attention"],
         "rglru_scan": hybrid_launches["rglru_scan"],
         "gemm_partial": gemm_launches["gemm_partial"],
         "systolic_gemm": gemm_launches["systolic_gemm"]}

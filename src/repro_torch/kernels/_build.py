@@ -59,12 +59,16 @@ _SIGNATURES = {
                        _L, _L, _P],
     "repro_gemm_bf16": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L,
                         _L, _P],
-    # dtype, q, k, v, out, part, counters, B, Hkv, G, dh, pos, chunk,
-    # n_split, n_grp, q strides (b, h), k strides (b, h, s), v strides
-    # (b, h, s), scale, stream
-    "repro_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L,
-                               _L, ctypes.c_float, _P],
+    # dtype, q, k, v, out, B, Hkv, G, dh, S, pos, chunk, n_split,
+    # head_splits, tile_rows, stages (decode_attention.cluster_plan), q
+    # strides (b, h), k strides (b, h, s), v strides (b, h, s), scale,
+    # stream
+    "repro_decode_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+                               _L, _L, ctypes.c_float, _P],
+    # dtype, dh, heads a cluster, tile_rows, stages, cluster size, int*
+    # count: how many such clusters the card holds at once
+    "repro_decode_active_clusters": [_I, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, B, Hq, Hkv, S, Skv, dqk, dv, causal, window, q_offset,
     # q/k/v/o strides (b, h, s) each, scale, softcap, stream; _f32 is the
     # FFMA kernel (flash_attention.cu), _bf16 the wgmma one

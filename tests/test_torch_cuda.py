@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.decode_attention import (decode_attention_tpu,
-                                                  split_plan)
+                                                  edge_positions, plan_for)
 from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention_tpu
 from repro_torch.kernels.rglru_scan import rglru_scan_tpu
 from repro_torch.kernels.systolic_gemm import gemm_partial, systolic_gemm
@@ -386,18 +386,17 @@ def test_flash_refuses_a_pair_it_does_not_instantiate(gen):
 
 
 # (B, Hkv, G, dh, S): TinyLlama, recurrentgemma-2b's ring, B*Hkv > 1, MHA,
-# G 10 over two head groups at batch 2
+# G 10 over two head groups at batch 2, G 48 in two passes over the chunk
 DECODE_SHAPES = [(1, 4, 8, 64, 1024), (1, 1, 10, 256, 2048),
                  (2, 2, 4, 64, 256), (1, 4, 1, 32, 256),
-                 (2, 2, 10, 256, 512)]
+                 (2, 2, 10, 256, 512), (1, 2, 48, 64, 256)]
 
 
-def _edge_positions(B, Hkv, G, dh, S, itemsize):
-    """0, the edges of the first chunk of the plan for a full cache, 535
-    and the last slot."""
-    chunk, _ = split_plan(B, Hkv, S, G, dh, itemsize=itemsize)
-    return sorted({p for p in (0, chunk - 1, chunk, chunk + 1, 535, S - 1)
-                   if p < S})
+def _edge_positions(q, kc):
+    """0, 535, the last slot and the positions at the edges of the plan
+    the wrapper launches (a last chunk of one key, a full last chunk, a
+    tile edge, a chunk that walks the ring)."""
+    return edge_positions(lambda pos: plan_for(q, kc, pos), kc.shape[2])
 
 
 @pytest.mark.parametrize("B,Hkv,G,dh,S", DECODE_SHAPES)
@@ -405,12 +404,13 @@ def _edge_positions(B, Hkv, G, dh, S, itemsize):
                                        (torch.bfloat16, BF16_TOL)])
 def test_decode_at_chunk_edges_repeats_bit_for_bit(gen, B, Hkv, G, dh, S,
                                                    dtype, tol):
-    """Against the plain version at the split plan's chunk edges; a second
-    call gives the same bits, so the last block reset its counter."""
+    """Against the plain version at the cluster plan's chunk and tile
+    edges; a second call gives the same bits (the cluster folds its
+    partials in rank order)."""
     q = _randn(gen, B, Hkv * G, dh, dtype=dtype)
     kc = _randn(gen, B, S, Hkv, dh, dtype=dtype).transpose(1, 2)
     vc = _randn(gen, B, S, Hkv, dh, dtype=dtype).transpose(1, 2)
-    for pos in _edge_positions(B, Hkv, G, dh, S, q.element_size()):
+    for pos in _edge_positions(q, kc):
         out = decode_attention_tpu(q, kc, vc, pos)
         again = decode_attention_tpu(q, kc, vc, pos)
         assert torch.equal(out, again), pos
@@ -447,13 +447,12 @@ def test_flash_at_the_vlm_and_audio_head_layouts(gen, Hq, Hkv, dh, dtype,
                                        (torch.bfloat16, BF16_TOL)])
 def test_decode_at_the_vlm_and_audio_head_layouts(gen, Hq, Hkv, dh, dtype,
                                                   tol):
-    """Decode on a 1024-slot cache at the split plan's chunk edges, q and
-    the cache inside NaN frames, each call twice and bit-identical."""
+    """Decode on a 1024-slot cache at the cluster plan's edges, q and the
+    cache inside NaN frames, each call twice and bit-identical."""
     q = _nan_framed(gen, 1, 1, Hq, dh, dtype)[:, :, 0]
     kc = _nan_framed(gen, 1, 1024, Hkv, dh, dtype)
     vc = _nan_framed(gen, 1, 1024, Hkv, dh, dtype)
-    for pos in _edge_positions(1, Hkv, Hq // Hkv, dh, 1024,
-                               q.element_size()):
+    for pos in _edge_positions(q, kc):
         out = decode_attention_tpu(q, kc, vc, pos)
         assert torch.equal(out, decode_attention_tpu(q, kc, vc, pos)), pos
         assert bool(torch.isfinite(out).all()), pos
@@ -510,25 +509,67 @@ def _to_cpu(tree):
 
 
 def test_decode_in_a_cuda_graph_equals_the_eager_call(gen):
-    """The counters reset themselves, so a captured decode call replays."""
+    """Nothing but the output is allocated and nothing is left for the
+    next call, so a decode call is captured with no eager call before it
+    and its replays equal the eager call."""
     bf = torch.bfloat16
     q = _randn(gen, 1, 10, 256, dtype=bf)
     kc = _randn(gen, 1, 2048, 1, 256, dtype=bf).transpose(1, 2)
     vc = _randn(gen, 1, 2048, 1, 256, dtype=bf).transpose(1, 2)
-    want = decode_attention_tpu(q, kc, vc, 535)       # sizes the counters
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        decode_attention_tpu(q, kc, vc, 535)
-    torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = decode_attention_tpu(q, kc, vc, 535)
+        out = decode_attention_tpu(q, kc, vc, 1535)
+    want = decode_attention_tpu(q, kc, vc, 1535)
     for _ in range(2):
         out.zero_()
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("B,Hkv,G,dh,S", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_ignores_nan_past_pos(gen, B, Hkv, G, dh, S, dtype):
+    """Cache rows past ``pos`` poisoned with NaN (in the last chunk's
+    tile and in later chunks' rows) leave the output finite and equal, bit
+    for bit, to the call on the clean cache."""
+    q = _randn(gen, B, Hkv * G, dh, dtype=dtype)
+    kc = _randn(gen, B, S, Hkv, dh, dtype=dtype).transpose(1, 2)
+    vc = _randn(gen, B, S, Hkv, dh, dtype=dtype).transpose(1, 2)
+    for pos in _edge_positions(q, kc):
+        kp, vp = kc.clone(), vc.clone()
+        kp[:, :, pos + 1:] = float("nan")
+        vp[:, :, pos + 1:] = float("nan")
+        clean = decode_attention_tpu(q, kc, vc, pos)
+        got = decode_attention_tpu(q, kp, vp, pos)
+        assert bool(torch.isfinite(got).all()), pos
+        assert torch.equal(got, clean), pos
+
+
+def test_decode_on_two_streams_gives_the_solo_results(gen):
+    """Two decode calls in flight on two streams (TinyLlama's and the
+    hybrid's shapes) share nothing: each gives its solo result."""
+    bf = torch.bfloat16
+    calls = []
+    for Hq, Hkv, dh, S, pos in [(32, 4, 64, 1024, 535),
+                                (10, 1, 256, 2048, 2047)]:
+        q = _randn(gen, 1, Hq, dh, dtype=bf)
+        kc = _randn(gen, 1, S, Hkv, dh, dtype=bf).transpose(1, 2)
+        vc = _randn(gen, 1, S, Hkv, dh, dtype=bf).transpose(1, 2)
+        calls.append((q, kc, vc, pos))
+    solo = [decode_attention_tpu(*c) for c in calls]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in calls]
+    outs = [[] for _ in calls]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(20):
+        for s, c, o in zip(streams, calls, outs):
+            with torch.cuda.stream(s):
+                o.append(decode_attention_tpu(*c))
+    torch.cuda.synchronize()
+    for want, got in zip(solo, outs):
+        assert all(torch.equal(g, want) for g in got)
 
 
 def test_decode_is_one_kernel_launch(gen):
