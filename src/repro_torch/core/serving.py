@@ -36,6 +36,7 @@ from repro_torch.core.scheduler import MODE_SEVERITY, Mode, Policy
 from repro_torch.core.task import Crit
 from repro_torch.models import lm
 from repro_torch.models.common import CPU_RC, RuntimeConfig
+from repro_torch.runtime import trace
 
 # request -> lane partition heuristics (the reference's core.platform)
 HEURISTICS = ("first_fit", "worst_fit", "crit_aware")
@@ -107,6 +108,26 @@ def _move_cache(cache: dict, device) -> dict:
             for k, v in cache.items()}
 
 
+def _cache_bytes(cache: dict) -> int:
+    return sum(_cache_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size()
+               if isinstance(v, torch.Tensor) else 0
+               for v in cache.values())
+
+
+def _moved(kind: str, r: "Request", device) -> dict:
+    """``r``'s cache moved to ``device`` through the module global
+    ``_move_cache``, inside a span ``serve.<kind>`` with its counters
+    while the tracer is on."""
+    if not trace.ON:
+        return _move_cache(r.cache, device)
+    n = _cache_bytes(r.cache)
+    trace.count(f"serve.{kind}s")
+    trace.count(f"serve.{kind}_bytes", n)
+    with trace.span(f"serve.{kind}", rid=r.rid, bytes=n):
+        return _move_cache(r.cache, device)
+
+
 def model_fns(cfg: ArchConfig, rc: RuntimeConfig, max_len: int):
     """The (decode, prefill) pair the server dispatches: the port's
     ``lm.decode_step`` and ``lm.prefill`` (eager; the reference jits)."""
@@ -170,7 +191,7 @@ class MESCServer:
                 if r.resident and not r.done]
 
     def _evict(self, victim: Request):
-        victim.cache = _move_cache(victim.cache, "cpu")  # step_wise_mvout
+        victim.cache = _moved("save", victim, "cpu")  # step_wise_mvout
         victim.resident = False
         victim.saves += 1
         self._charge(self._cs_save_s)
@@ -190,12 +211,15 @@ class MESCServer:
         if r.cache is None:
             # the prefill logits are dropped, as in the reference: the
             # first decode step feeds prompt[-1] again at position S
-            _, r.cache = self._prefill(
-                self.params,
-                {"tokens": torch.as_tensor(r.prompt[None],
-                                           device=self.device)})
+            with trace.span("serve.prefill", rid=r.rid, crit=r.crit.value,
+                            tokens=len(r.prompt)) \
+                    if trace.ON else trace.NULL:
+                _, r.cache = self._prefill(
+                    self.params,
+                    {"tokens": torch.as_tensor(r.prompt[None],
+                                               device=self.device)})
         elif not r.resident:
-            r.cache = _move_cache(r.cache, self.device)  # step_wise_mvin
+            r.cache = _moved("restore", r, self.device)  # step_wise_mvin
             self._charge(self._cs_restore_s)
         r.resident = True
 
@@ -252,7 +276,18 @@ class MESCServer:
     # -- the serve loop -----------------------------------------------------
     def step(self) -> Optional[int]:
         """One scheduler invocation + one instruction (decode step).
-        Returns the rid that ran, or None if idle."""
+        Returns the rid that ran, or None if idle.  While the tracer is
+        on, the step is a span ``serve.step``."""
+        if not trace.ON:
+            return self._step()
+        mode = self.mode
+        with trace.span("serve.step", lane=self.lane) as sp:
+            sp.rid = self._step()
+        if self.mode != mode:
+            trace.count("serve.mode_switches")
+        return sp.rid
+
+    def _step(self) -> Optional[int]:
         self._mode_tick()
         r = self._pick()
         # non-preemptive baseline: a started request owns the accelerator
@@ -266,6 +301,8 @@ class MESCServer:
             prev = self.requests.get(self.current)
             if prev is not None and not prev.done:
                 prev.preemptions += 1
+                if trace.ON:
+                    trace.count("serve.preemptions")
         self.current = r.rid
         if not r.resident:
             self._make_room(r)
@@ -274,11 +311,16 @@ class MESCServer:
             r.started_at = self.clock()
         t0 = self.clock()
         last = (r.generated[-1] if r.generated else int(r.prompt[-1]))
-        logits, r.cache = self._decode(
-            self.params,
-            torch.tensor([last], dtype=torch.int32, device=self.device),
-            r.cache)
-        tok = int(torch.argmax(logits[0].float()))
+        with trace.span("serve.decode", rid=r.rid, pos=r.cache["pos"]) \
+                if trace.ON else trace.NULL:
+            logits, r.cache = self._decode(
+                self.params,
+                torch.tensor([last], dtype=torch.int32, device=self.device),
+                r.cache)
+        # the step's one wait for the card
+        with trace.span("serve.readback", rid=r.rid) \
+                if trace.ON else trace.NULL:
+            tok = int(torch.argmax(logits[0].float()))
         r.generated.append(tok)
         r.exec_s += self.clock() - t0
         if r.first_token_at is None:

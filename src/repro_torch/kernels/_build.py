@@ -26,6 +26,8 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.runtime import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -182,15 +184,19 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib_path = library_path()
-            if not lib_path.exists():
-                _build(lib_path)
-            handle = ctypes.CDLL(str(lib_path))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = handle
+            with trace.span("kernel.library_load") \
+                    if trace.ON else trace.NULL:
+                lib_path = library_path()
+                if not lib_path.exists():
+                    if trace.ON:
+                        trace.count("kernel.library_build")
+                    _build(lib_path)
+                handle = ctypes.CDLL(str(lib_path))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(handle, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _lib = handle
     return _lib
 
 

@@ -25,6 +25,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, meta, ref
+from repro_torch.runtime import trace
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)  # instantiated in csrc/decode_attention.cu
@@ -238,6 +239,8 @@ def plan_for(q, k_cache, pos: int) -> DecodePlan:
     Hkv = k_cache.shape[1]
     key = (q.device, q.dtype, B, Hkv, Hq // Hkv, dh, pos)
     if key not in _PLANS:
+        if trace.ON:
+            trace.count("kernel.decode_plan_miss")
         n_sm = torch.cuda.get_device_properties(
             q.device).multi_processor_count
         _PLANS[key] = cluster_plan(B, Hkv, pos + 1, Hq // Hkv, dh,

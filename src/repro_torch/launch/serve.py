@@ -27,6 +27,13 @@ model serves the arrivals in wall-clock time on ``--device``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arrivals poisson --virtual
   PYTHONPATH=src python -m repro_torch.launch.serve --arrivals poisson
 
+``--spans`` turns on the program's tracer (``runtime/trace.py``) after
+the model is loaded and prints, on standard error at the end, each
+span's count, host ms (total and mean), self ms and device ms, and the
+counters (context saves and restores with their bytes, preemptions,
+mode switches, decode-plan misses, kernel launches by wrapper and
+route).  Standard output is unchanged.
+
 ``--arch`` takes a config of the dense (tinyllama-1.1b, olmo-1b,
 phi4-mini-3.8b, qwen1.5-110b), ``vlm`` (llava-next-34b, served on text
 prompts), hybrid (recurrentgemma-2b), ``xlstm`` (xlstm-125m), ``moe``
@@ -47,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 import time
 from collections import deque
 from typing import List, Optional
@@ -61,6 +69,7 @@ from repro_torch.core.serving import (HEURISTICS, MESCServer,
 from repro_torch.core.task import Crit
 from repro_torch.models import lm
 from repro_torch.models.common import CPU_RC, DEFAULT_RC
+from repro_torch.runtime import trace
 from repro_torch.runtime.device import resolve_device
 from repro_torch.serving import (PROCESS_KINDS, FrontDoor, build_workload,
                                  make_process, run_virtual_serving,
@@ -262,6 +271,7 @@ def main_traffic(args):
           f"lo_rate={args.rate}/s, hi_rate={args.hi_rate}/s)")
     if not args.virtual:
         cfg, params, rc = load_model(args.arch, args.device)
+    _start_spans(args, "cpu" if args.virtual else params["embed"].device)
     rows = {}
     for name, policy in (("mesc", Policy.mesc()),
                          ("np", Policy.non_preemptive())):
@@ -317,14 +327,31 @@ def main():
                     help="serve on the deterministic virtual clock + "
                          "service model (no weights, no device)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--spans", action="store_true",
+                    help="trace the serving path and print each span's "
+                         "times and the counters on stderr at the end")
     args = ap.parse_args()
     if args.arrivals == "trace" and not args.trace:
         ap.error("--arrivals trace requires --trace PATH")
     if args.arrivals != "batch":
         main_traffic(args)
-        return
+    else:
+        main_batch(args)
+    if args.spans:
+        spans, counters = trace.drain()
+        trace.disable()
+        print(trace.format_summary(spans, counters), file=sys.stderr)
 
+
+def _start_spans(args, device) -> None:
+    if args.spans:
+        trace.enable(device_events=torch.device(device).type == "cuda")
+
+
+def main_batch(args):
+    """--arrivals batch: the closed batch drive."""
     cfg, params, rc = load_model(args.arch, args.device)
+    _start_spans(args, params["embed"].device)
     lane_kw = dict(lanes=args.lanes, heuristic=args.heuristic, rc=rc)
     rng = np.random.default_rng(0)
     print(f"MESC (instruction-level preemption, lanes={args.lanes}, "

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
-from repro_torch.runtime import sharding
+from repro_torch.runtime import sharding, trace
 from repro_torch.runtime.sharding import reshape, seq_matmul
 from repro_torch.models.common import (apply_rope, checkpoint, rmsnorm,
                                        rope_cos_sin)
@@ -43,12 +43,15 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
 
     ``q_offset`` is the absolute position of q[0] (for chunked prefill);
     ``softcap`` c maps each scaled score s to c * tanh(s / c) before the
-    causal mask.
+    causal mask.  While the tracer is on, the call is a span
+    ``kernel.flash_attention``.
     """
-    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=causal,
-                            block_q=block_q, block_kv=block_kv,
-                            q_offset=q_offset, softcap=softcap)
+    with trace.span("kernel.flash_attention", tokens=q.shape[1]) \
+            if trace.ON else trace.NULL:
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                block_q=block_q, block_kv=block_kv,
+                                q_offset=q_offset, softcap=softcap)
     return o.transpose(1, 2)
 
 

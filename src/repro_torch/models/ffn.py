@@ -21,6 +21,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.runtime import trace
 from repro_torch.runtime.sharding import contiguous_grad, reshape, \
     shard_activation
 
@@ -107,8 +108,15 @@ def moe_dispatch(x, p, cfg):
     R = routing rows (sorted independently), N = tokens per row.  The
     router logits, softmax and gate normalisation are fp32; the slot
     gates are cast to ``x``'s dtype before they scale the expert
-    outputs, as in the reference.
+    outputs, as in the reference.  While the tracer is on, the call is a
+    span ``model.moe_dispatch``.
     """
+    with trace.span("model.moe_dispatch", tokens=x.shape[0] * x.shape[1]) \
+            if trace.ON else trace.NULL:
+        return _moe_dispatch(x, p, cfg)
+
+
+def _moe_dispatch(x, p, cfg):
     e = cfg.moe
     R, N, D = x.shape
     E, K = e.num_experts, e.top_k

@@ -76,7 +76,7 @@ from repro_torch.models.common import (DEFAULT_RC, RuntimeConfig, apply_norm,
                                        softmax_xent_sums)
 from repro_torch.pytree import tree_leaves
 from repro_torch.runtime.device import resolve_device
-from repro_torch.runtime import sharding
+from repro_torch.runtime import sharding, trace
 from repro_torch.runtime.sharding import (cache_leaf, local_call, reshape,
                                           seq_matmul, shard_activation,
                                           whole_dim)
@@ -949,8 +949,16 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
     (a vlm prompt's length counts its patch embeddings).  The hybrid
     cache is not: its window ring has ``window`` slots whatever the
     prompt, as in the reference (``lm.py:329-339,714-719``); nor is the
-    xlstm state, whose size is fixed.
+    xlstm state, whose size is fixed.  While the tracer is on, the call
+    is a span ``model.prefill``.
     """
+    with trace.span("model.prefill", tokens=int(batch["tokens"].shape[1])) \
+            if trace.ON else trace.NULL:
+        return _prefill(cfg, params, batch, rc, max_len)
+
+
+def _prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
+             rc: RuntimeConfig, max_len: Optional[int]):
     h = embed_inputs(cfg, params, batch, rc)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
@@ -1038,8 +1046,16 @@ def decode_step(cfg: ArchConfig, params: Params, tokens, cache,
 
     Returns (logits (B, V), audio (B, K, V); cache).  The cache tensors
     are updated in place; the returned dict holds them with ``pos``
-    advanced by one.
+    advanced by one.  While the tracer is on, the call is a span
+    ``model.decode_step``.
     """
+    with trace.span("model.decode_step", pos=cache["pos"]) \
+            if trace.ON else trace.NULL:
+        return _decode_step(cfg, params, tokens, cache, rc)
+
+
+def _decode_step(cfg: ArchConfig, params: Params, tokens, cache,
+                 rc: RuntimeConfig):
     pos = int(cache["pos"])
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
     B = tokens.shape[0]

@@ -36,6 +36,7 @@ import torch
 from repro_torch.core.scheduler import Policy
 from repro_torch.core.serving import MultiLaneServer, Request
 from repro_torch.core.task import Crit
+from repro_torch.runtime import trace
 from repro_torch.scenarios import (get_scenario, lane_lost,
                                    next_loss_boundary)
 from repro_torch.serving.clock import VirtualClock
@@ -168,7 +169,16 @@ class FrontDoor:
 
     def pump(self) -> List[int]:
         """Admit everything currently admissible; returns the admitted
-        rids (HI strictly before LO)."""
+        rids (HI strictly before LO).  While the tracer is on, a span
+        ``serve.pump`` with the count admitted."""
+        if not trace.ON:
+            return self._admit()
+        with trace.span("serve.pump") as sp:
+            admitted = self._admit()
+            sp.attrs["admitted"] = len(admitted)
+        return admitted
+
+    def _admit(self) -> List[int]:
         admitted: List[int] = []
         while self.hi_q:                   # HI is never throttled
             spec = self.hi_q.popleft()
