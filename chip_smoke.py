@@ -37,8 +37,12 @@ and then, failing on the first phase that goes wrong:
    full last chunk, a tile edge, a chunk that walks the ring, and 0, 535
    and the last slot), each call made twice and required to repeat bit
    for bit and made a third time with the cache rows past ``pos`` set to
-   NaN, required to give the same bits, and one decode call profiled to
-   be one kernel launch;
+   NaN, required to give the same bits; at TinyLlama's main path (a
+   1024-slot cache) and LLaVA-NeXT-34B's (q 1x56x128 over a 4096-slot
+   cache) the same again with the position in a device word under each
+   bucket's plan (``decode_graph.bucket_top``, the plan a replayed decode
+   step launches) at that plan's chunk edges; and one decode call
+   profiled to be one kernel launch;
 3. checks full-width TinyLlama-1.1B, and recurrentgemma-2b cut to 5
    layers (one (rglru, rglru, attn) group and the 2-layer tail) with a
    512-token prompt, in fp32, teacher-forced, on the card (kernels)
@@ -84,7 +88,10 @@ and then, failing on the first phase that goes wrong:
    latest redesign, its ratio to the library call and its TFLOP/s (flash
    and decode also at LLaVA-NeXT-34B's and MusicGen-large's shapes; decode
    at the open-loop drive's last position (63 of a 64-slot cache), at
-   TinyLlama's 1023 and on the hybrid's full 2048-slot ring; flash on the
+   TinyLlama's 1023 and on the hybrid's full 2048-slot ring; decode at
+   LLaVA-NeXT-34B's 4096-slot context at positions 128 and 3584 with the
+   position on the device under its bucket's plan (511, 4095), the
+   per-position plan's time beside it; flash on the
    second 512-token chunk of a 1024-token TinyLlama prompt, plainly and
    with a score cap of 50), and
    the scan plan's alternatives (channels x
@@ -422,29 +429,55 @@ def randn(shape, gen, dtype=torch.float32):
     return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
 
 
-def decode_edges(what, q, kc, vc, tol, block_s=1024):
+def decode_edges(what, q, kc, vc, tol, block_s=1024, buckets=False):
     """Decode against its plain version at the edges of the cluster plan
     the wrapper launches for this cache (``edge_positions``: a last chunk
     of one key, a full last chunk, a tile edge, a chunk that walks the
     ring; 0, 535 and the last slot): each call twice and bit-identical,
     and a third time with the cache rows past ``pos`` set to NaN, which
-    must give the same bits."""
+    must give the same bits.  With ``buckets``, the same with the
+    position in a device word under the plan of its bucket
+    (``bucket_top``: the plan a replayed decode step takes), at those
+    positions and at each bucket plan's chunk edges (a chunk's first
+    row, the one before it and the one after), where the chunks past
+    ``pos`` read nothing."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import (decode_attention_tpu,
                                                       edge_positions,
                                                       plan_for)
-    for pos in edge_positions(lambda p: plan_for(q, kc, p), kc.shape[2]):
-        got = decode_attention_tpu(q, kc, vc, pos, block_s=block_s)
-        again = decode_attention_tpu(q, kc, vc, pos, block_s=block_s)
+    from repro_torch.models.decode_graph import bucket_top
+    S = kc.shape[2]
+    edges = edge_positions(lambda p: plan_for(q, kc, p), S)
+    cases = [(pos, None) for pos in edges]
+    if buckets:
+        tops = sorted({bucket_top(p, S) for p in range(S)})
+        chunk_edges = {c * plan_for(q, kc, t).chunk + d for t in tops
+                       for c in range(plan_for(q, kc, t).n_split)
+                       for d in (-1, 0, 1)}
+        cases += [(pos, bucket_top(pos, S))
+                  for pos in sorted((set(edges) | chunk_edges)
+                                    & set(range(S)))]
+    at = torch.zeros((), dtype=torch.int64, device=q.device)
+    for pos, top in cases:
+        at.fill_(pos)
+
+        def call(k, v):
+            if top is None:
+                return decode_attention_tpu(q, k, v, pos, block_s=block_s)
+            return decode_attention_tpu(q, k, v, at, block_s=block_s,
+                                        pos_top=top)
+        got = call(kc, vc)
+        again = call(kc, vc)
         kp, vp = kc.clone(), vc.clone()
         kp[:, :, pos + 1:] = float("nan")
         vp[:, :, pos + 1:] = float("nan")
-        poisoned = decode_attention_tpu(q, kp, vp, pos, block_s=block_s)
-        assert torch.equal(got, again), (what, pos)
-        assert torch.equal(got, poisoned), (what, pos)
-        plan = tuple(plan_for(q, kc, pos))
-        check_close(f"{what} pos {pos} plan {plan} (twice, bit-identical; "
-                    "NaN past pos: the same bits)", got,
+        poisoned = call(kp, vp)
+        assert torch.equal(got, again), (what, pos, top)
+        assert torch.equal(got, poisoned), (what, pos, top)
+        how = "" if top is None else f" on the device, bucket plan of {top}"
+        plan = tuple(plan_for(q, kc, pos if top is None else top))
+        check_close(f"{what} pos {pos}{how} plan {plan} (twice, "
+                    "bit-identical; NaN past pos: the same bits)", got,
                     ref.decode_attention_ref(q, kc, vc, pos), tol)
 
 
@@ -464,7 +497,7 @@ def phase_kernels(dev):
         kc = randn((1, 1024, 4, 64), gen, dt).transpose(1, 2)
         vc = randn((1, 1024, 4, 64), gen, dt).transpose(1, 2)
         decode_edges(f"decode B1 Hq32 Hkv4 dh64 S1024 {dt}", q, kc, vc,
-                     ATTN_TOL[dt])
+                     ATTN_TOL[dt], buckets=True)
         for (B, Hq, Hkv, S, dh) in [(2, 8, 2, 256, 64), (1, 4, 4, 512, 32)]:
             q = randn((B, Hq, dh), gen, dt)
             kc = randn((B, Hkv, S, dh), gen, dt)
@@ -721,6 +754,15 @@ def phase_family_kernels(dev, gen):
             decode_edges(f"decode {name} q 1x{Hq}x{dh} cache "
                          f"1x{Hkv}x1024x{dh} G {Hq // Hkv} {dt} (NaN frame)",
                          qd, kc, vc, ATTN_TOL[dt])
+    # LLaVA-NeXT-34B's decode as its serving steps launch it: a 4096-slot
+    # context, the position on the device under each bucket's plan
+    for dt in (torch.float32, torch.bfloat16):
+        qd = _nan_framed((1, 1, 56, 128), gen, dt)[:, :, 0]
+        kc = _nan_framed((1, 4096, 8, 128), gen, dt)
+        vc = _nan_framed((1, 4096, 8, 128), gen, dt)
+        decode_edges(f"decode llava-next-34b q 1x56x128 cache 1x8x4096x128 "
+                     f"{dt} (NaN frame)", qd, kc, vc, ATTN_TOL[dt],
+                     buckets=True)
 
 
 def phase_scan_kernel(dev, gen):
@@ -3340,9 +3382,11 @@ def phase_timing(dev, launches, card, power):
     and decode, the preemptible GEMM; the decode rows at other positions
     carry the launches of the run whose positions they stand for (pos 63:
     the open-loop MESC run, on 64-slot caches; pos 1023: tinyllama's;
-    the hybrid's full ring: recurrentgemma-2b's)."""
+    the hybrid's full ring: recurrentgemma-2b's; llava-next-34b's bucket
+    plans: its MESC run's, whose steps replay)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention_tpu
+    from repro_torch.kernels.decode_attention import (decode_attention_tpu,
+                                                      plan_for)
     from repro_torch.kernels.flash_attention import flash_attention_tpu
     from repro_torch.kernels import rglru_scan
     from repro_torch.kernels.rglru_scan import (launch_plan, rglru_scan_tpu,
@@ -3390,23 +3434,35 @@ def phase_timing(dev, launches, card, power):
                 f"{before / r['ms']:.2f}x this kernel's time; "
                 f"{r['tflops']:.1f} TFLOP/s")
 
-    def decode_row(name, Hq, Hkv, dh, S, pos, note):
+    def decode_row(name, Hq, Hkv, dh, S, pos, note, top=None):
         """One layer's decode attention; the library call gets the KV
-        heads repeated to Hq beforehand."""
+        heads repeated to Hq beforehand.  With ``top``, the position is a
+        device word under the plan for ``top`` (a replayed decode step's
+        launch), and the per-position plan's time is kept beside."""
         q = randn((1, Hq, dh), gen, bf)
         kc = randn((1, S, Hkv, dh), gen, bf).transpose(1, 2)
         vc = randn((1, S, Hkv, dh), gen, bf).transpose(1, 2)
         live = pos + 1
         kr = kc[:, :, :live].repeat_interleave(Hq // Hkv, dim=1)
         vr = vc[:, :, :live].repeat_interleave(Hq // Hkv, dim=1)
+        at = torch.full((), pos, dtype=torch.int64, device=q.device)
         row(name, "src/repro_torch/kernels/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention.py:59",
-            lambda: decode_attention_tpu(q, kc, vc, pos),
+            (lambda: decode_attention_tpu(q, kc, vc, pos)) if top is None
+            else (lambda: decode_attention_tpu(q, kc, vc, at, pos_top=top)),
             lambda: ref.decode_attention_ref(q, kc, vc, pos),
             lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr),
             4 * Hq * live * dh, 2 * (2 * Hkv * live * dh + 2 * Hq * dh),
             PEAK_BF16, ATTN_TOL[bf],
             f"q 1x{Hq}x{dh}, cache 1x{Hkv}x{S}x{dh} bf16, pos {pos}{note}")
+        if top is not None:
+            r = rows[-1]
+            r["per_position_ms"] = cuda_time_ms(
+                lambda: decode_attention_tpu(q, kc, vc, pos))
+            log(f"    per-position plan {tuple(plan_for(q, kc, pos))}: "
+                f"{r['per_position_ms']:.4f} ms; bucket plan "
+                f"{tuple(plan_for(q, kc, top))}: "
+                f"{r['ms'] / r['per_position_ms']:.2f}x its time")
 
     def flash_row(name, Hq, Hkv, dh, S, window, note):
         """One layer of an S-token prefill; the library call gets the
@@ -3521,6 +3577,16 @@ def phase_timing(dev, launches, card, power):
     decode_row("decode_attention@pos1023", 32, 4, 64, 1024, 1023, "")
     decode_row("decode_attention@recurrentgemma-2b@pos2047", 10, 1, 256,
                2048, 2047, ", window ring full")
+    # llava-next-34b's decode as a replayed serving step launches it: a
+    # 4096-slot context, the position a device word, the plan of its
+    # bucket (decode_graph.bucket_top): a HI's step at 128 (plan of 511)
+    # and a LO document's at 3584 (plan of 4095)
+    from repro_torch.models.decode_graph import bucket_top
+    for pos in (128, 3584):
+        top = bucket_top(pos, 4096)
+        decode_row(f"decode_attention@llava-next-34b@pos{pos}_bucket", 56, 8,
+                   128, 4096, pos, f", on the device, bucket plan of {top}",
+                   top=top)
     # deepseek-v2-lite-16b: one MLA layer of the 512-token prefill, q/k
     # head dim 192 against v 128, 16 heads; SDPA takes Ev != E as it is
     H, S, dqk, dv = 16, 512, 192, 128
@@ -3713,6 +3779,10 @@ def main() -> int:
             mla_launches["flash_attention"],
         "flash_attention@llava-next-34b": vlm_launches["flash_attention"],
         "decode_attention@llava-next-34b": vlm_launches["decode_attention"],
+        "decode_attention@llava-next-34b@pos128_bucket":
+            vlm_launches["decode_attention"],
+        "decode_attention@llava-next-34b@pos3584_bucket":
+            vlm_launches["decode_attention"],
         "flash_attention@musicgen-large": audio_launches["flash_attention"],
         "decode_attention@musicgen-large":
             audio_launches["decode_attention"],

@@ -127,8 +127,9 @@ def decode_caller(lib, dec, q, kc, vc, out, pos):
     """A launch of ``lib``'s decode entry on these tensors, through
     whichever interface the checkout has: the cluster kernel (this
     checkout's ``plan_for``, whose occupancy query asks this checkout's
-    build) or the split-and-fold kernel (``dec.split_plan``, its scratch
-    and zeroed counters, which the kernel leaves zeroed)."""
+    build; with or without the device-position pointer, passed null) or
+    the split-and-fold kernel (``dec.split_plan``, its scratch and zeroed
+    counters, which the kernel leaves zeroed)."""
     from repro_torch.kernels.decode_attention import plan_for
     fn = lib.repro_decode_attention
     B, Hq, dh = q.shape
@@ -155,8 +156,10 @@ def decode_caller(lib, dec, q, kc, vc, out, pos):
     else:
         p = plan_for(q, kc, pos)
         args = [code, q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                out.data_ptr(), B, Hkv, G, dh, S, pos, p.chunk, p.n_split,
-                p.head_splits, p.tile_rows, p.stages]
+                out.data_ptr(), B, Hkv, G, dh, S, pos]
+        if len(fn.argtypes) == len(args) + 16:     # pos_dev, null
+            args.append(None)
+        args += [p.chunk, p.n_split, p.head_splits, p.tile_rows, p.stages]
     args += strides + [dh ** -0.5]
 
     def call():                 # the current stream: a graph captures it

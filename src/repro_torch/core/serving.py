@@ -130,7 +130,9 @@ def _moved(kind: str, r: "Request", device) -> dict:
 
 def model_fns(cfg: ArchConfig, rc: RuntimeConfig, max_len: int):
     """The (decode, prefill) pair the server dispatches: the port's
-    ``lm.decode_step`` and ``lm.prefill`` (eager; the reference jits)."""
+    ``lm.decode_step`` and ``lm.prefill`` (the reference jits both; here
+    a prefill runs eagerly and, on the card, a decode step replays a CUDA
+    graph: ``models/decode_graph.py``)."""
     def decode(p, t, c):
         return lm.decode_step(cfg, p, t, c, rc)
 

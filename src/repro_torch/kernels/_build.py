@@ -61,13 +61,14 @@ _SIGNATURES = {
                        _L, _L, _P],
     "repro_gemm_bf16": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L,
                         _L, _P],
-    # dtype, q, k, v, out, B, Hkv, G, dh, S, pos, chunk, n_split,
-    # head_splits, tile_rows, stages (decode_attention.cluster_plan), q
-    # strides (b, h), k strides (b, h, s), v strides (b, h, s), scale,
-    # stream
+    # dtype, q, k, v, out, B, Hkv, G, dh, S, pos, pos_dev (null, or the
+    # position as an int64 on the device, pos then the plan's last
+    # position), chunk, n_split, head_splits, tile_rows, stages
+    # (decode_attention.cluster_plan), q strides (b, h), k strides
+    # (b, h, s), v strides (b, h, s), scale, stream
     "repro_decode_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
-                               _L, _L, ctypes.c_float, _P],
+                               _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
+                               _L, _L, _L, ctypes.c_float, _P],
     # dtype, dh, heads a cluster, tile_rows, stages, cluster size, int*
     # count: how many such clusters the card holds at once
     "repro_decode_active_clusters": [_I, _I, _I, _I, _I, _I, _P],

@@ -66,6 +66,14 @@
 // and `out` lives in global memory: no scratch, no counters, so a call can
 // be captured in a CUDA graph as it is and calls on two streams share
 // nothing.
+//
+// Position on the device: given a pointer, the kernel reads `pos` from a
+// device word when it starts, so a CUDA graph of a decode step
+// replays at any position.  The plan is then the plan for `top`, the last
+// position of the caller's bucket, and `pos` is clamped to [0, top].  A
+// chunk that starts past `pos` reads nothing and pushes an empty partial
+// (max NEG_INF, sum 0), which the combine skips; at pos == top the launch
+// is the per-position one.
 #include <stdint.h>
 #include <string.h>
 
@@ -130,8 +138,10 @@ struct Layout {
 struct Args {
   const void* q;
   void* out;
+  const i64* posp;   // the position on the device, or null: `pos` is it
   i64 sqb, sqh;   // q's (batch, head) strides
-  int Hkv, G, hps, pos, chunk, T, stages;   // hps: heads a cluster
+  int Hkv, G, hps, pos, chunk, T, stages;   // hps: heads a cluster; pos: the
+                                            // plan's last position
   float scale;
 };
 
@@ -423,7 +433,11 @@ decode_kernel(const __grid_constant__ CUtensorMap map_k,
   const uint32_t full = smem_u32(bars), empty = smem_u32(bars + g.stages);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rank = (int)cluster_rank(), n_split = (int)cluster_size();
-  const int s0 = rank * g.chunk, s1 = min(s0 + g.chunk, g.pos + 1);
+  const int pos = g.posp == nullptr
+                      ? g.pos
+                      : (int)min(max(__ldg(g.posp), (i64)0), (i64)g.pos);
+  // a chunk past pos has no rows and no tiles
+  const int s0 = rank * g.chunk, s1 = max(s0, min(s0 + g.chunk, pos + 1));
   const int n_tiles = (s1 - s0 + g.T - 1) / g.T;
   // the (head, 4-column) outputs: unit u belongs to rank u % n_split, at
   // its slot u / n_split of each source rank's upr slots
@@ -523,18 +537,19 @@ decode_kernel(const __grid_constant__ CUtensorMap map_k,
 
   // ------------------------------------------------------- cluster combine
   // every rank's pushes have landed: fold this rank's units, sources in
-  // rank order
+  // rank order, skipping the ranks whose chunk starts past pos
   if (alone) return;
   cluster_arrive();
   cluster_wait();
+  const int live = min(n_split, pos / g.chunk + 1);
   for (int i = tid; i < upr; i += THREADS) {
     const int u = rank + n_split * i;
     if (u >= U) break;
     float M = NEG_INF;
-    for (int r = 0; r < n_split; ++r) M = fmaxf(M, rml[r * upr + i].x);
+    for (int r = 0; r < live; ++r) M = fmaxf(M, rml[r * upr + i].x);
     float Ls = 0.f;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int r = 0; r < n_split; ++r) {
+    for (int r = 0; r < live; ++r) {
       const float2 ml = rml[r * upr + i];
       const float4 x = racc[r * upr + i];
       const float c = __expf(ml.x - M);
@@ -608,9 +623,9 @@ cudaLaunchConfig_t config(cudaLaunchAttribute* attr, int n_split,
 
 template <typename T, int DH>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out,
-           int B, int Hkv, int G, int S, int pos, int chunk, int n_split,
-           int head_splits, int T_rows, int stages, const i64* st,
-           float scale, cudaStream_t s) {
+           int B, int Hkv, int G, int S, int pos, const i64* posp, int chunk,
+           int n_split, int head_splits, int T_rows, int stages,
+           const i64* st, float scale, cudaStream_t s) {
   const int hps = (G + head_splits - 1) / head_splits;
   const Layout lay(DH, (int)sizeof(T), hps, T_rows, stages);
   if (lay.total > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
@@ -623,7 +638,8 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
   if (e != 0) return 1000 + e;
   cudaError_t err = prepare<T, DH>(lay.total);
   if (err != cudaSuccess) return (int)err;
-  Args a{q, out, st[0], st[1], Hkv, G, hps, pos, chunk, T_rows, stages, scale};
+  Args a{q, out, posp, st[0], st[1], Hkv, G, hps, pos, chunk, T_rows, stages,
+         scale};
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       config(attr, n_split, head_splits, B * Hkv, lay.total, s);
@@ -658,12 +674,13 @@ int active(int heads, int T_rows, int stages, int cluster, int* count) {
 
 template <typename T>
 int dispatch(int dtype, int dh, const void* q, const void* k, const void* v,
-             void* out, int B, int Hkv, int G, int S, int pos, int chunk,
-             int n_split, int head_splits, int T_rows, int stages,
-             const i64* st, float scale, cudaStream_t s) {
+             void* out, int B, int Hkv, int G, int S, int pos,
+             const i64* posp, int chunk, int n_split, int head_splits,
+             int T_rows, int stages, const i64* st, float scale,
+             cudaStream_t s) {
 #define REPRO_DECODE_LAUNCH(DH)                                              \
-  launch<T, DH>(dtype, q, k, v, out, B, Hkv, G, S, pos, chunk, n_split,     \
-                head_splits, T_rows, stages, st, scale, s)
+  launch<T, DH>(dtype, q, k, v, out, B, Hkv, G, S, pos, posp, chunk,        \
+                n_split, head_splits, T_rows, stages, st, scale, s)
   REPRO_DECODE_DISPATCH(REPRO_DECODE_LAUNCH)
 #undef REPRO_DECODE_LAUNCH
 }
@@ -692,15 +709,21 @@ bool valid_tiles(int G, int T_rows, int stages) {
 // a positive multiple of 16, n_split == ceil((pos + 1) / chunk) <= 16 CTAs
 // a cluster, the G heads of a kv head split over head_splits clusters of
 // ceil(G / head_splits) heads (none empty), tiles of T_rows (a multiple of
-// 16, at most 256) rows in a ring of `stages` (1-4).  Returns 0, a CUDA
-// error of the launch, or 1000 + the driver's error of a tensor map.
+// 16, at most 256) rows in a ring of `stages` (1-4).  `pos_dev` is null,
+// or points at one int64 in device memory that holds the position: then
+// `pos` is the plan's last position, and the kernel reads the word when
+// it starts and clamps it to [0, pos], so a graph that captures the
+// launch replays at whatever position the word holds then.  Returns 0, a
+// CUDA error of the launch, or 1000 + the driver's error of a tensor map.
 extern "C" int repro_decode_attention(
     int dtype, const void* q, const void* k, const void* v, void* out, int B,
-    int Hkv, int G, int dh, int S, int pos, int chunk, int n_split,
-    int head_splits, int T_rows, int stages, i64 sqb, i64 sqh, i64 skb,
-    i64 skh, i64 sks, i64 svb, i64 svh, i64 svs, float scale, void* stream) {
+    int Hkv, int G, int dh, int S, int pos, const void* pos_dev, int chunk,
+    int n_split, int head_splits, int T_rows, int stages, i64 sqb, i64 sqh,
+    i64 skb, i64 skh, i64 sks, i64 svb, i64 svh, i64 svs, float scale,
+    void* stream) {
   const i64 st[8] = {sqb, sqh, skb, skh, sks, svb, svh, svs};
   cudaStream_t s = (cudaStream_t)stream;
+  const i64* posp = (const i64*)pos_dev;
   if (pos < 0 || pos >= S || chunk <= 0 || chunk % 16 != 0 ||
       n_split != (pos + chunk) / chunk || n_split > MAX_CLUSTER ||
       B < 1 || Hkv < 1 || !valid_tiles(G, T_rows, stages) ||
@@ -709,12 +732,12 @@ extern "C" int repro_decode_attention(
   const int hps = (G + head_splits - 1) / head_splits;
   if ((G + hps - 1) / hps != head_splits) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(dtype, dh, q, k, v, out, B, Hkv, G, S, pos, chunk,
-                           n_split, head_splits, T_rows, stages, st, scale,
-                           s);
+    return dispatch<float>(dtype, dh, q, k, v, out, B, Hkv, G, S, pos, posp,
+                           chunk, n_split, head_splits, T_rows, stages, st,
+                           scale, s);
   return dispatch<__nv_bfloat16>(dtype, dh, q, k, v, out, B, Hkv, G, S, pos,
-                                 chunk, n_split, head_splits, T_rows, stages,
-                                 st, scale, s);
+                                 posp, chunk, n_split, head_splits, T_rows,
+                                 stages, st, scale, s);
 }
 
 // How many clusters of `cluster` CTAs of the decode kernel at this (dtype,

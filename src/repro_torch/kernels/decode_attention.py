@@ -13,8 +13,12 @@ the plain version in ``kernels/ref.py``, on a meta tensor its shapes
 Layout: q (B,Hq,dh); cache (B,Hkv,S,dh), any strides with a contiguous
 last dimension and every base and stride a multiple of 16 bytes (the
 model passes a ``transpose(1, 2)`` view of its (B,S,Hkv,dh) layer cache,
-no copy); ``pos`` is a host int shared by the batch (the reference
-scalar-prefetches it).
+no copy); ``pos`` is shared by the batch (the reference scalar-prefetches
+it): a host int, or a 0-d int64 tensor on q's device that the kernel
+reads when it starts.  With a device ``pos`` the caller names ``pos_top``,
+the last position the launch may meet, and the launch takes the plan for
+``pos_top`` (chunks past ``pos`` read nothing), so a CUDA graph that
+captures it replays at any position up to ``pos_top``.
 """
 from __future__ import annotations
 
@@ -249,16 +253,20 @@ def plan_for(q, k_cache, pos: int) -> DecodePlan:
     return _PLANS[key]
 
 
-def launch_plan(q, k_cache, v_cache, pos: int, plan: DecodePlan):
+def launch_plan(q, k_cache, v_cache, pos, plan: DecodePlan,
+                pos_top: Optional[int] = None):
     """One launch of the kernel with ``plan`` (any plan the kernel takes,
     for sweeps and checks of the plan's alternatives); counts no launch.
-    The arguments are those the wrapper has checked."""
+    ``pos`` a host int, or a device tensor with ``plan`` the plan for
+    ``pos_top``.  The arguments are those the wrapper has checked."""
     B, Hq, dh = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty((B, Hq, dh), dtype=q.dtype, device=q.device)
+    at = (int(pos_top), pos.data_ptr()) if isinstance(pos, torch.Tensor) \
+        else (int(pos), None)
     err = _build.lib().repro_decode_attention(
         _build.dtype_code(q), q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), out.data_ptr(), B, Hkv, Hq // Hkv, dh, S, pos,
+        v_cache.data_ptr(), out.data_ptr(), B, Hkv, Hq // Hkv, dh, S, *at,
         plan.chunk, plan.n_split, plan.head_splits, plan.tile_rows,
         plan.stages, q.stride(0), q.stride(1), k_cache.stride(0),
         k_cache.stride(1), k_cache.stride(2), v_cache.stride(0),
@@ -268,9 +276,14 @@ def launch_plan(q, k_cache, v_cache, pos: int, plan: DecodePlan):
     return out
 
 
-def decode_attention_tpu(q, k_cache, v_cache, pos, *, block_s: int = 1024):
-    """q (B,Hq,dh), k/v_cache (B,Hkv,S,dh), pos int -> (B,Hq,dh).
+def decode_attention_tpu(q, k_cache, v_cache, pos, *, block_s: int = 1024,
+                         pos_top: Optional[int] = None):
+    """q (B,Hq,dh), k/v_cache (B,Hkv,S,dh), pos -> (B,Hq,dh).
 
+    ``pos`` is a host int, which the launch plans for, or a 0-d int64
+    tensor on q's device, which the kernel reads when it starts: then the
+    launch takes the plan for ``pos_top`` (on the card and the meta
+    device; the CPU needs none), and the position must not pass it.
     ``block_s`` keeps the reference's divisibility assert; the CUDA
     kernel splits the live cache by :func:`cluster_plan`.
     """
@@ -279,15 +292,24 @@ def decode_attention_tpu(q, k_cache, v_cache, pos, *, block_s: int = 1024):
     _, Hkv, S, _ = k_cache.shape
     bs = min(block_s, S)
     assert S % bs == 0
-    pos = int(pos)
+    on_device = isinstance(pos, torch.Tensor)
+    if not on_device:
+        pos = int(pos)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k_cache, v_cache, pos)
+    if on_device and pos_top is None:
+        raise ValueError("a position on the device needs pos_top")
+    top = int(pos_top) if on_device else pos
     if q.device.type == "meta":
-        return meta.decode_attention(q, k_cache, v_cache, pos)
+        return meta.decode_attention(q, k_cache, v_cache, top)
     if Hq % Hkv != 0:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
-    if not 0 <= pos < S:
-        raise ValueError(f"pos={pos} outside the cache [0, {S})")
+    if not 0 <= top < S:
+        raise ValueError(f"pos={top} outside the cache [0, {S})")
+    if on_device and (pos.shape != () or pos.dtype != torch.int64
+                      or pos.device != q.device):
+        raise ValueError("a position on the device is a 0-d int64 tensor "
+                         "on q's device")
     if dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
     if not (q.dtype == k_cache.dtype == v_cache.dtype):
@@ -300,6 +322,7 @@ def decode_attention_tpu(q, k_cache, v_cache, pos, *, block_s: int = 1024):
                              "and one device")
     _build.dtype_code(q)
     _build.check_aligned(q, k_cache, v_cache)   # TMA: 16-byte bases, strides
-    out = launch_plan(q, k_cache, v_cache, pos, plan_for(q, k_cache, pos))
+    out = launch_plan(q, k_cache, v_cache, pos, plan_for(q, k_cache, top),
+                      top)
     _build.LAUNCHES["decode_attention"] += 1
     return out

@@ -42,11 +42,13 @@ def flash_attention(q, k, v, *, causal=True, block_q=512, block_kv=512,
     return flash_attention_tpu(q, k, v, **kw)
 
 
-def decode_attention(q, k_cache, v_cache, pos, *, block_s=1024):
+def decode_attention(q, k_cache, v_cache, pos, *, block_s=1024,
+                     pos_top=None):
+    kw = dict(block_s=block_s, pos_top=pos_top)
     if isinstance(q, DTensor):
         return sharding.attention_local(decode_attention_tpu, q, k_cache,
-                                        v_cache, pos, block_s=block_s)
-    return decode_attention_tpu(q, k_cache, v_cache, pos, block_s=block_s)
+                                        v_cache, pos, **kw)
+    return decode_attention_tpu(q, k_cache, v_cache, pos, **kw)
 
 
 def rglru(a, b, h0, *, block_s=256, block_d=256):

@@ -184,26 +184,38 @@ def blocked_local_attention(q, k, v, *, window: int, q_offset: int = 0,
     return torch.cat(outs, dim=2).transpose(1, 2).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, pos: int):
-    """q (B,Hq,Dh); k/v_cache (B,S,Hkv,Dh); pos int current position.
-    Positions > pos are masked."""
+def decode_attention(q, k_cache, v_cache, pos, pos_top=None):
+    """q (B,Hq,Dh); k/v_cache (B,S,Hkv,Dh); pos the current position (a
+    host int or a 0-d int64 tensor on q's device; the kernel's plan is
+    ``pos_top``'s, default ``pos``).  Positions > pos are masked."""
     return ops.decode_attention(q, k_cache.transpose(1, 2),
-                                v_cache.transpose(1, 2), pos)
+                                v_cache.transpose(1, 2), pos,
+                                pos_top=pos_top)
 
 
-def cache_update(cache, new, pos: int, use_dus: bool = False):
+def positions_at(pos, B: int, device):
+    """(B, 1) positions, all ``pos`` (a host int or a 0-d tensor, whose
+    value is read where it is used)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1, 1).expand(B, 1)
+    return torch.full((B, 1), pos, device=device)
+
+
+def cache_update(cache, new, pos, use_dus: bool = False):
     """Write ``new`` (B, Hkv, Dh) into cache (B, S, Hkv, Dh) at ``pos``
     (any trailing dims: MLA's (B, lora) into (B, S, lora)), in place;
-    returns ``cache``.
+    returns ``cache``.  ``pos`` is a host int or a 0-d int64 tensor.
 
     Default: the reference's one-hot select over the whole cache, which a
     cache sharded on S takes shard by shard (each touches only its
     S-slice) at the cost of a full cache read and write.  ``use_dus``
-    writes the one position (the reference's dynamic-update-slice).  Both
-    leave the same values.
+    writes the one position (the reference's dynamic-update-slice; at a
+    device position, ``index_copy_``).  Both leave the same values.
     """
     new = new[:, None].to(cache.dtype)
     if use_dus:
+        if isinstance(pos, torch.Tensor):
+            return cache.index_copy_(1, pos.reshape(1), new)
         cache[:, pos:pos + 1] = new
         return cache
     hit = torch.arange(cache.shape[1], device=new.device) == pos
@@ -265,12 +277,12 @@ def mla_prefill_qkv(x, p, cfg, positions):
     return q_full, k_full, v, c, kr
 
 
-def mla_decode(x, p, cfg, c_cache, kr_cache, pos: int):
+def mla_decode(x, p, cfg, c_cache, kr_cache, pos):
     """Weight-absorbed MLA decode over the compressed cache.
 
     x (B,D); c_cache (B,T,lora) and kr_cache (B,T,dr) are one layer's
-    cache, written in place at ``pos`` by the reference's one-hot
-    select.  Returns out (B,D).  The scale is (dn + dr) ** -0.5, the
+    cache, written in place at ``pos`` (a host int or a 0-d int64
+    tensor) by the reference's one-hot select.  Returns out (B,D).  The scale is (dn + dr) ** -0.5, the
     decompressed key's.
     """
     m, H = cfg.mla, cfg.n_heads
@@ -278,7 +290,7 @@ def mla_decode(x, p, cfg, c_cache, kr_cache, pos: int):
     ckv = torch.matmul(x, p["w_dkv"].to(x.dtype))
     c, kr = torch.split(ckv, [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
     c = rmsnorm(c, p["c_norm"])
-    cos, sin = _mla_rope(cfg, torch.full((B, 1), pos, device=x.device))
+    cos, sin = _mla_rope(cfg, positions_at(pos, B, x.device))
     kr = apply_rope(kr[:, None, None, :], cos, sin)[:, 0, 0]
     q = reshape(torch.matmul(x, p["w_q"].to(x.dtype)),
                 (B, H, m.qk_nope_dim + m.qk_rope_dim))

@@ -22,9 +22,10 @@ Two placements of one tree: serving keeps weights in the compute dtype
 parameter dtype (``master=True``), and the block bodies cast each weight
 to the activations' dtype where they use it, as the reference does.
 
-Caches keep the reference's layout, with ``pos`` a host int so that
-neither the kernels (which take it by value) nor the serving loop's
-termination test need a device sync:
+Caches keep the reference's layout, with ``pos`` a host int so that the
+serving loop's termination test needs no device sync (the decode step
+hands the body the position as a device tensor, so that a CUDA graph of
+it replays at any position: ``models/decode_graph.py``):
 
 - dense, vlm, audio: ``{"ck", "cv": (L,B,S,Hkv,dh), "pos"}``;
 - hybrid: per group of (rglru, rglru, attn) the RG-LRU states
@@ -43,7 +44,11 @@ termination test need a device sync:
   does not grow with the sequence.
 
 ``decode_step`` updates the cache tensors in place and returns a dict
-holding them with ``pos + 1``.
+holding them with ``pos + 1``.  On the card, ``prefill`` takes its cache
+leaves from a pool and ``decode_step`` replays a CUDA graph of its body
+on them (``models/decode_graph.py``): a cache that is not a pool entry
+(one restored from the host) is copied into one first, and the returned
+dict holds the entry.
 
 Tokens are (B, S) ids, (B, S, K) codebook ids for ``audio`` (decode:
 (B,) and (B, K)); ``audio`` logits are (..., K, V).
@@ -68,6 +73,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import decode_graph
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.common import (DEFAULT_RC, RuntimeConfig, apply_norm,
@@ -442,9 +448,9 @@ def embed_inputs(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
     h = h.to(rc.compute_dtype)
     if cfg.family == "hybrid":            # gemma-style scaling
         # the scale is rounded to h's dtype first, as the reference's
-        # jnp.asarray(d_model ** 0.5, h.dtype) is (50.5 in bf16)
-        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype,
-                             device=h.device)
+        # jnp.asarray(d_model ** 0.5, h.dtype) is (50.5 in bf16); rounded
+        # on the host, so that a CUDA graph can capture the product
+        h = h * float(torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype))
     return h
 
 
@@ -666,20 +672,29 @@ def _window_cache(x, W: int):
     return torch.cat([x, pad], dim=1)
 
 
-def _attn_decode(cfg, rc, h, p, ck, cv, pos, positions, window=None):
+def _ring(pos, W: int):
+    """(slot, last live slot) of position ``pos`` in a W-slot ring: pos % W
+    and min(pos, W - 1), on the host or the device as ``pos`` is."""
+    if isinstance(pos, torch.Tensor):
+        return torch.remainder(pos, W), torch.clamp(pos, max=W - 1)
+    return pos % W, min(pos, W - 1)
+
+
+def _attn_decode(cfg, rc, h, p, ck, cv, pos, top, positions, window=None):
     """``ck``/``cv`` (B,S,Hkv,dh) are one layer's cache, written in place.
     With a window they are a ring: slot pos % W, and every slot is live
-    once the ring is full.  RoPE uses the absolute ``pos``."""
+    once the ring is full.  RoPE uses the absolute ``pos``; the decode
+    kernel takes the plan for ``top``."""
     x = apply_norm(cfg.norm, h, p["ln"])
     q, k, v = attn_lib.gqa_project_qkv(x, p, cfg, positions)
     if window is not None:
         W = ck.shape[1]
-        slot, pos_eff = pos % W, min(pos, W - 1)
+        (slot, pos_eff), top = _ring(pos, W), min(top, W - 1)
     else:
         slot = pos_eff = pos
     attn_lib.cache_update(ck, k[:, 0], slot, use_dus=rc.dus_cache_update)
     attn_lib.cache_update(cv, v[:, 0], slot, use_dus=rc.dus_cache_update)
-    o = attn_lib.decode_attention(q[:, 0], ck, cv, pos_eff)
+    o = attn_lib.decode_attention(q[:, 0], ck, cv, pos_eff, pos_top=top)
     o = o.reshape(o.shape[0], 1, -1)
     return h + torch.matmul(o, p["wo"].to(o.dtype))
 
@@ -933,10 +948,19 @@ def _put(leaf, i: int, t) -> None:
     leaf[i] = t
 
 
-def _prefill_cache(cfg, B: int, T: int, rc: RuntimeConfig, h):
+def _prefill_cache(cfg, B: int, T: int, rc: RuntimeConfig, h, params):
     """The cache a prefill of activations ``h`` fills: zeros on h's
-    device, each rank making its shards alone when h is sharded."""
-    return init_cache(cfg, B, T, rc, h.device, make=cache_leaf(h))
+    device, each rank making its shards alone when h is sharded; on the
+    card, the leaves of a free entry of ``params``' cache pool."""
+    make = cache_leaf(h)
+    if make is None and h.device.type == "cuda" \
+            and not isinstance(h, DTensor):
+        layout = []
+        init_cache(cfg, B, T, rc, "meta", make=lambda path, shape, dtype,
+                   fill: layout.append((tuple(path), tuple(shape), dtype)))
+        make = decode_graph.take(decode_graph.model_of(params, h.device),
+                                 tuple(layout), h.device).make
+    return init_cache(cfg, B, T, rc, h.device, make=make)
 
 
 @torch.no_grad()
@@ -966,7 +990,7 @@ def _prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
     blocks = params["blocks"]
     T = max_len if (max_len is not None and max_len > S) else S
     if cfg.family in _DENSE:
-        cache = _prefill_cache(cfg, B, T, rc, h)
+        cache = _prefill_cache(cfg, B, T, rc, h, params)
         for i in range(cfg.n_layers):
             p = _layer(blocks, i)
             h, (k, v) = _attn_full(cfg, rc, h, p["attn"], positions)
@@ -975,7 +999,7 @@ def _prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
             h = shard_activation(_mlp_full(cfg, rc, h, p["mlp"]),
                                  "residual", rc)
     elif cfg.family == "moe":
-        cache = _prefill_cache(cfg, B, T, rc, h)
+        cache = _prefill_cache(cfg, B, T, rc, h, params)
         for i in range(_moe_groups(cfg)):
             p = _layer(blocks, i)
             h, (k, v) = _attn_full(cfg, rc, h, p["attn_a"], positions)
@@ -988,7 +1012,7 @@ def _prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
             h = shard_activation(_moe_nometrics(cfg, h, p["moe"]),
                                  "residual", rc)
     elif cfg.family == "mla_moe":
-        cache = _prefill_cache(cfg, B, T, rc, h)
+        cache = _prefill_cache(cfg, B, T, rc, h, params)
         for i in range(cfg.n_layers):
             p = _layer(blocks, i)
             h, (c, kr) = _mla_full(cfg, rc, h, p["attn"], positions)
@@ -998,7 +1022,7 @@ def _prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
                                  "residual", rc)
     elif cfg.family == "xlstm":
         G, n_m = _xlstm_groups(cfg)
-        cache = _prefill_cache(cfg, B, S, rc, h)
+        cache = _prefill_cache(cfg, B, S, rc, h, params)
         for i in range(G):
             p = _layer(blocks, i)
             for j in range(n_m):
@@ -1012,7 +1036,7 @@ def _prefill(cfg: ArchConfig, params: Params, batch: Dict[str, Any],
     else:
         G, n_tail = _hybrid_group_counts(cfg)
         W = cfg.rglru.window
-        cache = _prefill_cache(cfg, B, W, rc, h)
+        cache = _prefill_cache(cfg, B, W, rc, h, params)
         geglu = ffn_lib.geglu
         for i in range(G):
             p = _layer(blocks, i)
@@ -1046,37 +1070,60 @@ def decode_step(cfg: ArchConfig, params: Params, tokens, cache,
 
     Returns (logits (B, V), audio (B, K, V); cache).  The cache tensors
     are updated in place; the returned dict holds them with ``pos``
-    advanced by one.  While the tracer is on, the call is a span
-    ``model.decode_step``.
+    advanced by one.  On the card the step is a replay of a CUDA graph
+    of its body (``models/decode_graph.py``), and the returned dict holds
+    a pool entry (a cache that is none is copied into one first).  While
+    the tracer is on, the call is a span ``model.decode_step``.
     """
     with trace.span("model.decode_step", pos=cache["pos"]) \
             if trace.ON else trace.NULL:
-        return _decode_step(cfg, params, tokens, cache, rc)
+        return decode_graph.step(
+            cfg, params, tokens, cache, rc, _plan_reach(cfg, cache),
+            lambda t, c, pos, top: _decode_step(cfg, params, t, c, rc, pos,
+                                                top))
+
+
+def _plan_reach(cfg: ArchConfig, cache) -> Optional[int]:
+    """The cache slots the decode kernel plans over: a layer's cache
+    length, the hybrid's window ring; None for the families whose decode
+    launches no decode kernel (MLA's decode is PyTorch operations,
+    xLSTM has no attention)."""
+    if cfg.family in _DENSE:
+        return cache["ck"].shape[2]
+    if cfg.family == "moe":
+        return cache["cka"].shape[2]
+    if cfg.family == "hybrid":
+        return cache["wk"].shape[2]
+    return None
 
 
 def _decode_step(cfg: ArchConfig, params: Params, tokens, cache,
-                 rc: RuntimeConfig):
-    pos = int(cache["pos"])
+                 rc: RuntimeConfig, pos, top: Optional[int]):
+    """The step's body: the logits.  ``pos`` is the position, a 0-d int64
+    tensor on the parameters' device (a host int where they are
+    DTensors); ``top`` the position whose plan the decode kernel takes
+    (``pos`` or past it).  The cache is written in place; nothing reads
+    ``cache["pos"]``."""
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
     B = tokens.shape[0]
     h = embed_inputs(cfg, params, {"tokens": tokens[:, None]}, rc)
-    positions = torch.full((B, 1), pos, device=h.device)
+    positions = attn_lib.positions_at(pos, B, h.device)
     blocks = params["blocks"]
     c = cache
     if cfg.family in _DENSE:
         for i in range(cfg.n_layers):
             p = _layer(blocks, i)
             h = _attn_decode(cfg, rc, h, p["attn"], c["ck"][i], c["cv"][i],
-                             pos, positions)
+                             pos, top, positions)
             h = _mlp_full(cfg, rc, h, p["mlp"])
     elif cfg.family == "moe":
         for i in range(_moe_groups(cfg)):
             p = _layer(blocks, i)
             h = _attn_decode(cfg, rc, h, p["attn_a"], c["cka"][i],
-                             c["cva"][i], pos, positions)
+                             c["cva"][i], pos, top, positions)
             h = _mlp_full(cfg, rc, h, p["mlp"])
             h = _attn_decode(cfg, rc, h, p["attn_b"], c["ckb"][i],
-                             c["cvb"][i], pos, positions)
+                             c["cvb"][i], pos, top, positions)
             h = _moe_decode(cfg, h, p["moe"])
     elif cfg.family == "mla_moe":
         for i in range(cfg.n_layers):
@@ -1108,12 +1155,11 @@ def _decode_step(cfg: ArchConfig, params: Params, tokens, cache,
                               c["rconv1"][i])
             h = _mlp_full(cfg, rc, h, p["mlp1"], geglu)
             h = _attn_decode(cfg, rc, h, p["attn"], c["wk"][i], c["wv"][i],
-                             pos, positions, window=cfg.rglru.window)
+                             pos, top, positions, window=cfg.rglru.window)
             h = _mlp_full(cfg, rc, h, p["mlp2"], geglu)
         for i in range(n_tail):
             p = _layer(params["tail"], i)
             h = _rglru_decode(cfg, rc, h, p["rec"], c["tail"]["rh"][i],
                               c["tail"]["rconv"][i])
             h = _mlp_full(cfg, rc, h, p["mlp"], geglu)
-    logits = lm_logits(cfg, params, h, rc)[:, 0]
-    return logits, {**cache, "pos": pos + 1}
+    return lm_logits(cfg, params, h, rc)[:, 0]

@@ -50,6 +50,8 @@ MAX_SPANS = 1 << 20
 COUNTERS = ("serve.saves", "serve.save_bytes", "serve.restores",
             "serve.restore_bytes", "serve.preemptions", "serve.mode_switches",
             "kernel.decode_plan_miss", "kernel.library_build",
+            "model.decode_graph_replays", "model.decode_graph_captures",
+            "model.decode_cache_adoptions", "model.decode_eager",
             "trace.dropped")
 
 ON = False

@@ -546,6 +546,59 @@ def test_decode_ignores_nan_past_pos(gen, B, Hkv, G, dh, S, dtype):
         assert torch.equal(got, clean), pos
 
 
+# the device-position launches: DECODE_SHAPES and LLaVA-NeXT-34B's layer
+# at its 4096-slot context (G 7, dh 128)
+BUCKET_SHAPES = DECODE_SHAPES + [(1, 8, 7, 128, 4096)]
+
+
+@pytest.mark.parametrize("B,Hkv,G,dh,S", BUCKET_SHAPES)
+def test_decode_at_a_device_position_under_one_bucket_plan(gen, B, Hkv, G,
+                                                           dh, S):
+    """The plan for the last slot, the position read from the device:
+    against the plain version at the per-position plan's edges and the
+    bucket plan's chunk edges (chunks past pos empty), each call twice
+    and bit-identical, and the same bits with the rows past pos NaN;
+    one captured call replayed at every such position equals the eager
+    device-position call; at the plan's own position the launch is the
+    per-position one, bit for bit."""
+    bf = torch.bfloat16
+    q = _randn(gen, B, Hkv * G, dh, dtype=bf)
+    kc = _randn(gen, B, S, Hkv, dh, dtype=bf).transpose(1, 2)
+    vc = _randn(gen, B, S, Hkv, dh, dtype=bf).transpose(1, 2)
+    top = S - 1
+    plan = plan_for(q, kc, top)
+    chunk_edges = {c * plan.chunk + d for c in range(plan.n_split)
+                   for d in (-1, 0, 1)}
+    positions = sorted(p for p in set(_edge_positions(q, kc)) | chunk_edges
+                       if 0 <= p <= top)
+    at = torch.zeros((), dtype=torch.long, device="cuda")
+    eager = {}
+    for pos in positions:
+        at.fill_(pos)
+        out = decode_attention_tpu(q, kc, vc, at, pos_top=top)
+        assert torch.equal(out, decode_attention_tpu(q, kc, vc, at,
+                                                     pos_top=top)), pos
+        assert _err(out, ref.decode_attention_ref(q, kc, vc, pos)) \
+            <= BF16_TOL, pos
+        kp, vp = kc.clone(), vc.clone()
+        kp[:, :, pos + 1:] = float("nan")
+        vp[:, :, pos + 1:] = float("nan")
+        assert torch.equal(out, decode_attention_tpu(q, kp, vp, at,
+                                                     pos_top=top)), pos
+        eager[pos] = out
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = decode_attention_tpu(q, kc, vc, at, pos_top=top)
+    for pos in positions:
+        at.fill_(pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager[pos]), pos
+    assert torch.equal(eager[top], decode_attention_tpu(q, kc, vc, top))
+    with pytest.raises(ValueError):                # a device pos, no top
+        decode_attention_tpu(q, kc, vc, at)
+
+
 def test_decode_on_two_streams_gives_the_solo_results(gen):
     """Two decode calls in flight on two streams (TinyLlama's and the
     hybrid's shapes) share nothing: each gives its solo result."""
@@ -651,6 +704,128 @@ def test_open_loop_drive_matches_solo_replays_on_the_card(gen):
                                 max_new_tokens=r.max_new_tokens,
                                 crit=Crit.LO))
             assert solo.run()[0].generated == r.generated, r.rid
+
+
+# ----------------------------------------------------------------------
+# the decode step replayed as a CUDA graph (models/decode_graph.py)
+# ----------------------------------------------------------------------
+
+# few-layer cuts at full width: LLaVA-NeXT-34B (dense GQA 56/8, dh 128,
+# the decode kernel) and DeepSeek-V2-Lite (MLA, top-6 of 64 experts)
+GRAPH_ARCHS = {"llava": "llava-next-34b", "deepseek": "deepseek-v2-lite-16b"}
+GRAPH_PROMPT, GRAPH_STEPS, GRAPH_LEN = 504, 16, 1024   # crosses 511 | 512
+
+
+@pytest.fixture(scope="module", params=sorted(GRAPH_ARCHS))
+def few_layers(request):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the kernels run only there)")
+    cfg = dataclasses.replace(get_config(GRAPH_ARCHS[request.param]),
+                              n_layers=2)
+    yield serve.init_model(cfg, "cuda")
+    torch.cuda.empty_cache()
+
+
+def _prompt(cfg, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab, (1, GRAPH_PROMPT),
+                                    generator=g, device="cuda")}
+
+
+def test_graphed_decode_equals_the_eager_body(few_layers):
+    """Steps across a bucket edge (positions 504-519), replayed against
+    the eager body on its own copy of the cache, both fed the eager
+    tokens: the same argmax token and logits within the bf16 tolerance of
+    the largest logit at every step, caches within it at the end; one
+    eager step a bucket (its first, before its capture), replays
+    otherwise; one decode launch a layer a step counted for each
+    path."""
+    from repro_torch.models import decode_graph, lm
+    from repro_torch.runtime import trace
+    cfg, params, rc = few_layers
+    logits, cache = lm.prefill(cfg, params, _prompt(cfg, 1), rc,
+                               max_len=GRAPH_LEN)
+    mirror = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+              for k, v in cache.items()}
+    reach = lm._plan_reach(cfg, cache)
+    _build.reset_launches()
+    trace.enable()
+    try:
+        for _ in range(GRAPH_STEPS):
+            pos = mirror["pos"]
+            tok = torch.argmax(logits, dim=-1)
+            want = lm._decode_step(
+                cfg, params, tok, mirror, rc,
+                torch.full((), pos, dtype=torch.long, device="cuda"),
+                decode_graph.bucket_top(pos, reach))
+            mirror["pos"] = pos + 1
+            got, cache = lm.decode_step(cfg, params, tok, cache, rc)
+            assert cache["pos"] == pos + 1
+            assert torch.equal(got.argmax(-1), want.argmax(-1)), pos
+            assert _err(got, want) <= BF16_TOL * max(
+                1.0, float(want.float().abs().max())), pos
+            logits = want
+        _, counters = trace.drain()
+    finally:
+        trace.disable()
+    buckets = 1 if reach is None else 2
+    assert counters["model.decode_eager"] == buckets
+    assert counters["model.decode_graph_replays"] == GRAPH_STEPS - buckets
+    assert counters["model.decode_graph_captures"] == buckets
+    attn = 0 if reach is None else cfg.n_layers
+    assert _build.LAUNCHES["decode_attention"] == 2 * attn * GRAPH_STEPS
+    for k, t in mirror.items():
+        if k != "pos":
+            assert _err(cache[k], t) <= BF16_TOL, k
+
+
+def test_after_a_warm_up_the_steps_capture_nothing(few_layers):
+    """A warm-up of two live requests that each cross the bucket edge;
+    then a new request in a freed entry and a cache restored from the
+    host (copied into an entry once) step across the same buckets with
+    no capture and no eager step, every step a replay."""
+    from repro_torch.models import lm
+    from repro_torch.runtime import trace
+    cfg, params, rc = few_layers
+
+    def run(logits, cache):
+        for _ in range(GRAPH_STEPS):
+            logits, cache = lm.decode_step(cfg, params,
+                                           torch.argmax(logits, -1), cache,
+                                           rc)
+        return logits, cache
+
+    trace.enable()
+    try:
+        la, a = lm.prefill(cfg, params, _prompt(cfg, 2), rc,
+                           max_len=GRAPH_LEN)
+        lb, b = lm.prefill(cfg, params, _prompt(cfg, 3), rc,
+                           max_len=GRAPH_LEN)
+        run(la, a)
+        run(lb, {**b})
+        a = None                               # finished: its entry frees
+        _, warm = trace.drain()
+        lc, c = lm.prefill(cfg, params, _prompt(cfg, 4), rc,
+                           max_len=GRAPH_LEN)
+        run(lc, c)
+        saved = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                 for k, v in b.items()}
+        b = None                               # saved: its entry frees
+        restored = {k: (v.cuda() if isinstance(v, torch.Tensor) else v)
+                    for k, v in saved.items()}
+        run(lb, restored)
+        _, after = trace.drain()
+    finally:
+        trace.disable()
+    assert warm["model.decode_graph_captures"] > 0
+    assert after["model.decode_graph_captures"] == 0
+    assert after["model.decode_eager"] == 0
+    assert after["model.decode_graph_replays"] == 2 * GRAPH_STEPS
+    assert after["model.decode_cache_adoptions"] == 1
 
 
 # ----------------------------------------------------------------------
